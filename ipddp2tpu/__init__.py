@@ -1,18 +1,19 @@
-"""ipddp2tpu — a TPU-native IPDDP2 trajectory-optimization framework.
+"""ipddp2tpu — a batched IPDDP2 trajectory-optimization framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of primal-dual interior-point
-Differential Dynamic Programming (IPDDP2, arXiv:2504.08278) for discrete-time
-optimal control with nonlinear dynamics, stagewise equality constraints and
-control bounds — the capability set of the reference Julia package
-InteriorPointDDP.jl, re-designed TPU-first:
+A JAX/XLA/Pallas implementation of primal-dual interior-point Differential
+Dynamic Programming (IPDDP2, arXiv:2504.08278) for discrete-time optimal
+control with nonlinear dynamics, stagewise equality constraints and control
+bounds — the capability set of the reference Julia package
+InteriorPointDDP.jl, re-designed for batched accelerator execution:
 
   * derivatives via jacfwd/grad composition under jit (replaces Symbolics.jl
     codegen),
   * the backward pass as a reverse `lax.scan` of per-stage primal-dual KKT
     solves backed by batched LDL^T factorizations with inertia correction,
   * a filter line-search rollout as `lax.scan` + `lax.while_loop`,
-  * thousands of OCP instances `vmap`ped per chip and sharded across a device
-    mesh with `shard_map`, collectives only for convergence bookkeeping.
+  * thousands of OCP instances `vmap`ped per device and sharded across a
+    device mesh with `shard_map`, collectives only for convergence
+    bookkeeping.
 
 Public API (functional core + reference-parity facade):
 

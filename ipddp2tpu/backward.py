@@ -1,6 +1,6 @@
 """Backward pass: Riccati-like recursion of per-stage primal-dual KKT solves.
 
-TPU-native re-design of the reference backward pass (reference:
+Batched re-design of the reference backward pass (reference:
 src/backward_pass.jl:1-195): a `lax.scan` (reverse over time) whose per-stage
 body assembles the condensed primal-dual KKT system
 
@@ -119,24 +119,15 @@ def costate_scan(deriv: DerivativeBundle, phi, mode: str = "auto"):
       * "assoc": associative affine scan, O(log T) depth but O(T log T)
         [nx,nx]@[nx,nx] combines — wins when depth (latency) dominates;
       * "seq": reverse `lax.scan` of [nx,nx]@[nx] matvecs, O(T) depth but
-        4x less work and no log factor — wins whenever the batch keeps the
-        lanes busy (measured at b1024, scripts/tpu_f64_phase_probe.py:
-        f64-emulated 128.5 -> 9.8 ms/iteration, f32 51.5 -> 4.8).
-    "auto" = seq ON TPU (the headline paths run large batches where the
-    lanes amortize the depth), assoc otherwise — CPU keeps assoc so
-    golden-parity iterate paths are bit-stable across rounds
-    (reassociation shifts iteration counts).
-
-    (A Pallas sweep kernel for the seq mode existed rounds 4-5
-    (ops/costate_pallas): on-chip it measured 2.8 vs 3.1 ms/batch-iteration
-    at b1024 f32 — a 0.4% iteration gain that never justified its
-    iterate-path drift, and the round-5 fused-prologue experiment showed
-    the surrounding per-stage work is parallel and XLA-fused already
-    (docs/PERF.md round-5 levers). Deleted per wire-or-delete.)"""
+        4x less work and no log factor.
+    "auto" is assoc: the CPU's golden-parity iterate paths depend on it
+    (reassociation shifts iteration counts), and on an H100 at b2048 it
+    measured faster in f32 and level in f64 (chip_smoke.py's kernel phase
+    times both; PERF.md)."""
     r_x = deriv.lx + jnp.einsum("tcx,tc->tx", deriv.cx, phi)
     lam_T = deriv.lTx
     if mode == "auto":
-        mode = "seq" if jax.default_backend() == "tpu" else "assoc"
+        mode = "assoc"
 
     if mode == "seq":
         return _costate_seq_single(deriv.fx, r_x, lam_T)
@@ -304,14 +295,13 @@ def _run_pass(problem: Problem, deriv: DerivativeBundle, nominal,
 @lru_cache(maxsize=64)
 def _make_sweep(problem: Problem, options: Options):
     """One backward-sweep attempt at fixed per-instance (reg, delta_c), as a
-    `custom_vmap` function: per-instance it is the `lax.scan` sweep
+    `custom_vmap` function: per instance it is the `lax.scan` sweep
     (`_run_pass`); under `vmap` over problem instances it dispatches to the
-    fused Pallas megakernel (`ops/backward_pallas.py`) when eligible —
-    f32 on a TPU backend under `backward_kernel="auto"`, or always when
-    forced with `backward_kernel="pallas"` (interpret mode off-TPU, the
-    tests' parity path). The batched reg-restart ladder above is unchanged:
-    JAX's batched `while_loop` masks non-failing instances itself.
+    fused Pallas kernel (`ops/backward_pallas.py`) when `use_sweep_kernel`
+    says so. The batched reg-restart ladder above is unchanged: JAX's
+    batched `while_loop` masks non-failing instances itself.
     """
+    use_kernel = use_sweep_kernel(options)
 
     def single(deriv, nominal, second, mu, reg, delta_c):
         return _run_pass(problem, deriv, nominal, mu, reg, delta_c,
@@ -329,66 +319,42 @@ def _make_sweep(problem: Problem, options: Options):
 
         deriv, nominal, second, mu, reg, delta_c = jax.tree.map(
             bc, [deriv, nominal, second, mu, reg, delta_c], in_batched)
+        if not use_kernel:
+            out = jax.vmap(single)(deriv, nominal, second, mu, reg, delta_c)
+            return out, jax.tree.map(lambda _: True, out)
 
-        mode = options.backward_kernel
-        # auto never overrides an explicit non-LDLT inertia oracle: the
-        # kernels count exact-zero pivots, not eigh's atol signs
-        # "auto" is resolved per problem at the solve entry points
-        # (solve.resolve_options); a direct backward_pass call with an
-        # unresolved "auto" takes the ldl path, matching its else-branch
-        # in the stage KKT solve above
-        ldl = options.inertia_method in ("ldl", "auto")
-        use_pallas = (mode == "pallas"
-                      or (mode == "auto" and ldl
-                          and mu.dtype == jnp.float32
-                          and jax.default_backend() == "tpu"))
-        use_df64 = mu.dtype == jnp.float64 and (
-            mode == "pallas_df64"
-            or (mode == "auto" and ldl
-                and jax.default_backend() == "tpu"))
-        if use_df64:
-            # f64 endgame sweep as the double-single Pallas megakernel
-            # (TPU has no native f64; see ops/backward_pallas_df64.py)
-            from .ops.backward_pallas_df64 import backward_sweep_pallas_df64
-            c_rel, il, iu, phi, zl, zu = nominal
-            T, nz = problem.T, problem.nx + problem.nu
-            sec = (second if second is not None
-                   else jnp.zeros((axis_size, T, nz, nz), mu.dtype))
-            gains_t, dL, fail, singular = backward_sweep_pallas_df64(
-                deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx,
-                deriv.lux, deriv.luu, deriv.cx, deriv.cu, sec,
-                c_rel, il, iu, phi, zl, zu, deriv.lTx, deriv.lTxx,
-                mu, reg, delta_c,
-                nx=problem.nx, nu=problem.nu, nc=problem.nc,
-                refine=max(options.refine_steps, 1),
-                rtol=options.kkt_residual_rtol,
-                interpret=None if mode == "auto" else
-                (jax.default_backend() != "tpu"))
-            out = (Gains(*gains_t), dL, fail, singular)
-        elif use_pallas:
-            from .ops.backward_pallas import backward_sweep_pallas
-            c_rel, il, iu, phi, zl, zu = nominal
-            T, nz = problem.T, problem.nx + problem.nu
-            sec = (second if second is not None
-                   else jnp.zeros((axis_size, T, nz, nz), mu.dtype))
-            gains_t, dL, fail, singular = backward_sweep_pallas(
-                deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx,
-                deriv.lux, deriv.luu, deriv.cx, deriv.cu, sec,
-                c_rel, il, iu, phi, zl, zu, deriv.lTx, deriv.lTxx,
-                mu, reg, delta_c,
-                nx=problem.nx, nu=problem.nu, nc=problem.nc,
-                refine=max(options.refine_steps, 1),
-                rtol=options.kkt_residual_rtol,
-                interpret=None if mode == "auto" else
-                (jax.default_backend() != "tpu"))
-            out = (Gains(*gains_t), dL, fail, singular)
-        else:
-            out = jax.vmap(single)(deriv, nominal, second, mu, reg,
-                                   delta_c)
-        out_batched = jax.tree.map(lambda _: True, out)
-        return out, out_batched
+        from .ops.backward_pallas import backward_sweep_pallas
+        c_rel, il, iu, phi, zl, zu = nominal
+        gains_t, dL, fail, singular = backward_sweep_pallas(
+            deriv.fx, deriv.fu, deriv.lx, deriv.lu, deriv.lxx,
+            deriv.lux, deriv.luu, deriv.cx, deriv.cu, second,
+            c_rel, il, iu, phi, zl, zu, deriv.lTx, deriv.lTxx,
+            mu, reg, delta_c,
+            nx=problem.nx, nu=problem.nu, nc=problem.nc,
+            refine=max(options.refine_steps, 1),
+            rtol=options.kkt_residual_rtol)
+        out = (Gains(*gains_t), dL, fail, singular)
+        return out, jax.tree.map(lambda _: True, out)
 
     return sweep
+
+
+def use_sweep_kernel(options: Options) -> bool:
+    """Whether batched backward sweeps run the Pallas kernel.
+
+    "auto" takes it on a GPU with the LDL^T inertia oracle (the kernel
+    counts exact-zero pivots, not eigh's atol signs; an unresolved "auto"
+    inertia method means LDL^T, as in `_run_pass`); "xla" never; "pallas"
+    always. Off the GPU Pallas refuses to lower the kernel, so nothing
+    falls back to the interpreter unasked: only a caller of
+    `backward_sweep_pallas` that passes `interpret=True` gets it."""
+    mode = options.backward_kernel
+    if mode == "auto":
+        return (jax.default_backend() == "gpu"
+                and options.inertia_method in ("ldl", "auto"))
+    if mode not in ("xla", "pallas"):
+        raise ValueError(f"unknown backward_kernel {mode!r}")
+    return mode == "pallas"
 
 
 def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
@@ -418,13 +384,6 @@ def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
 
     sweep = _make_sweep(problem, options)
 
-    def attempt(reg, delta_c):
-        return sweep(deriv, nominal, second, mu, reg, delta_c)
-
-    # The initial attempt always runs with reg = 0, delta_c = 0
-    # (reference: src/backward_pass.jl:52-53).
-    init_result = attempt(zero, zero)
-
     def next_reg(reg):
         # IPOPT-style ladder (reference: src/inertia_correction.jl:268-273).
         first = jnp.where(
@@ -439,39 +398,50 @@ def backward_pass(problem: Problem, deriv: DerivativeBundle, nominal,
         )
         return jnp.where(reg == 0.0, first, bumped)
 
-    def make_carry(reg, delta_c, result, n):
-        gains, dL, fail, singular = result
-        return (reg, delta_c, gains, dL, fail, singular,
-                jnp.asarray(n, jnp.int32))
-
     # Clamp reg_max to the working dtype's finite max (the reference default
     # 1e40 overflows to inf when cast to f32, which would make the guard
     # vacuous) — computed in Python to avoid the overflow-on-cast warning.
     reg_max = jnp.asarray(min(options.reg_max, float(jnp.finfo(dtype).max)),
                           dtype)
 
+    # One loop, one sweep call site (a second site would compile the
+    # sweep kernel twice): n = -1 marks "no attempt yet", and the first
+    # attempt always runs with reg = 0, delta_c = 0
+    # (reference: src/backward_pass.jl:52-53).
     def cond(carry):
         reg, _, _, _, fail, _, n = carry
         # Stop once the reg the *next* attempt would use exceeds reg_max —
         # the reference never factorizes above reg_max
         # (reference: src/backward_pass.jl:55).
-        return (fail & (next_reg(reg) <= reg_max)
-                & (n < options.max_backward_restarts))
+        return (n < 0) | (fail & (next_reg(reg) <= reg_max)
+                          & (n < options.max_backward_restarts))
 
     def body(carry):
-        reg, delta_c, gains, dL, fail, singular, n = carry
+        reg, delta_c, _, _, _, singular, n = carry
         # The failed attempt determined the new (reg, delta_c)
         # (reference: src/inertia_correction.jl:263-273).
+        first = n < 0
         delta_c_new = jnp.where(
-            singular,
-            jnp.asarray(options.delta_c, dtype) * mu ** options.kappa_c,
-            delta_c,
-        )
-        reg_new = next_reg(reg)
-        result = attempt(reg_new, delta_c_new)
-        return make_carry(reg_new, delta_c_new, result, n + 1)
+            first, zero,
+            jnp.where(singular,
+                      jnp.asarray(options.delta_c, dtype)
+                      * mu ** options.kappa_c,
+                      delta_c))
+        reg_new = jnp.where(first, zero, next_reg(reg))
+        gains, dL, fail, singular = sweep(deriv, nominal, second, mu,
+                                          reg_new, delta_c_new)
+        return (reg_new, delta_c_new, gains, dL, fail, singular, n + 1)
 
-    carry = make_carry(zero, zero, init_result, 0)
+    def placeholder(*shape):
+        return jnp.zeros((T,) + shape, dtype) + zero
+
+    no_gains = Gains(placeholder(nu), placeholder(nu, nx), placeholder(nc),
+                     placeholder(nc, nx), placeholder(nu),
+                     placeholder(nu, nx), placeholder(nu),
+                     placeholder(nu, nx))
+    vfalse = zero > zero
+    carry = (zero, zero, no_gains, zero, vfalse, vfalse,
+             jnp.asarray(-1, jnp.int32) + zero.astype(jnp.int32))
     reg, delta_c, gains, dL, fail, singular, _ = jax.lax.while_loop(
         cond, body, carry
     )

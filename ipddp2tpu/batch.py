@@ -47,9 +47,6 @@ def solve_batch(problem: Problem, bounds: Bounds, x1: Array, u_init: Array,
     batch axis, or None.
     """
     options = options or Options()
-    from .autotune import tune
-    options = tune(options, int(jnp.shape(x1)[0]),
-                   jnp.asarray(u_init).dtype)
     theta_axes = None if theta is None else 0
     return jax.vmap(
         partial(solve, problem, options=options),

@@ -1,9 +1,10 @@
 """Chunked solving: bounded-length device programs resumed from state.
 
-The solver's `lax.while_loop` runs the whole barrier iteration on-device; on
-some deployments a single long-running device program is fragile (the TPU
-runtime here kills executions after roughly a minute of device time). Because
-the entire solver state is one pytree (SURVEY.md §5 checkpoint/warm-start
+The solver's `lax.while_loop` runs the whole barrier iteration on-device.
+Chunking bounds the length of each device program, lets the host act
+between chunks (stall freezing, batch compaction, adaptive line search) and
+stops a batch as soon as every instance is done. Because the entire solver
+state is one pytree (SURVEY.md §5 checkpoint/warm-start
 design), the loop chunks cleanly: run at most `chunk` iterations per jitted
 call, inspect convergence on the host, resume. Each resume re-enters
 `run()` with the carried state — bitwise the same trajectory as the single
@@ -44,10 +45,6 @@ def solve_chunked(problem: Problem, bounds: Bounds, x1, u_init, theta=None,
     the cap).
     """
     options = options or Options()
-    if batched:
-        from .autotune import tune
-        options = tune(options, int(jnp.shape(x1)[0]),
-                       jnp.asarray(u_init).dtype)
 
     init = initialize if not batched else jax.vmap(
         lambda b, x, u, th: initialize(problem, th, b, x, u, options),

@@ -30,7 +30,6 @@ redesign for XLA.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -151,12 +150,8 @@ def forward_pass(problem: Problem, theta, bounds: Bounds, gains: Gains,
     tau = jnp.maximum(options.tau_min, 1.0 - mu)
 
     def try_step(gamma):
-        # dispatching rollout: per-instance scan, or the fused Pallas trial
-        # kernel when this forward pass is vmapped on TPU (semantics
-        # identical — only the rollout arithmetic moves into the kernel)
-        trial = _make_rollout(problem, options)(
-            theta, bounds, gains, nominal.x, nominal.u, nominal.phi,
-            nominal.zl, nominal.zu, gamma)
+        trial = rollout(problem, theta, bounds, gains, nominal.x, nominal.u,
+                        nominal.phi, nominal.zl, nominal.zu, gamma)
         finite = (jnp.all(jnp.isfinite(trial.x))
                   & jnp.all(jnp.isfinite(trial.u))
                   & jnp.all(jnp.isfinite(trial.phi))
@@ -235,7 +230,7 @@ def forward_pass(problem: Problem, theta, bounds: Bounds, gains: Gains,
                          armijo_passed=armijo, switching=switching)
 
 
-def _forward_pass_speculative_xla(problem: Problem, theta, bounds: Bounds,
+def forward_pass_speculative(problem: Problem, theta, bounds: Bounds,
                                   gains: Gains, nominal: Trial, dL, mu,
                                   theta_prev, L_prev, min_primal_1,
                                   filter_pts,
@@ -244,8 +239,8 @@ def _forward_pass_speculative_xla(problem: Problem, theta, bounds: Bounds,
     i < ls_speculative, in ONE batched rollout and select the largest
     acceptable one.
 
-    TPU-first redesign of the backtracking loop (SURVEY.md §7 "hard parts"
-    #3): instead of a data-dependent `while_loop` whose trip count diverges
+    Accelerator-first redesign of the backtracking loop (SURVEY.md §7
+    "hard parts" #3): instead of a data-dependent `while_loop` whose trip count diverges
     across vmapped instances, all candidates evaluate in lockstep as an extra
     vectorization axis — trading bounded extra FLOPs (the rollout is the cheap
     pass) for uniform, compile-friendly control flow. Acceptance semantics per
@@ -312,193 +307,6 @@ def _forward_pass_speculative_xla(problem: Problem, theta, bounds: Bounds,
         armijo_passed=armijos[idx], switching=switchings[idx])
 
 
-# ---------------------------------------------------------------------------
-# Pallas-fused speculative line search (the forward megakernel dispatch).
-#
-# Under `vmap` (every batched solve) on TPU, the K-candidate evaluation and
-# the selected-trial rollout each run as ONE fused kernel over
-# (batch, K, time) — replacing the latency-bound per-trial `lax.scan`
-# chains that dominate the measured iteration wall (docs/PERF.md). The
-# acceptance logic stays in XLA with semantics identical to the
-# single-instance path; kernel/XLA parity is pinned by
-# tests/test_forward_pallas.py.
-# ---------------------------------------------------------------------------
-
-from functools import lru_cache  # noqa: E402
-
-from jax.custom_batching import custom_vmap  # noqa: E402
-
-
-# f32 "auto" dispatch: PRUNED round 5 after the full measurement story
-# resolved the round-4 ambiguity. 30-iteration hybrid-LS probe walls
-# (scripts/tpu_forward_probe.py): loses b64 (47.3 vs 35.8 ms/iter), wins
-# b128-b1024 (33.3/36.4, 37.0/44.4, 50.9/55.2, 74.8/79.7), loses b2048
-# (155.8 vs 118.7) — round 4's b256 "pathological 370.9" never reproduced
-# (contended-queue artifact). But FULL b512 solves measured the kernel 12%
-# SLOWER (187.3 vs 167.4 s warm, same seed): the probe samples early
-# backtracking-heavy iterations, while the solve's bulk — frozen converged
-# lanes, gamma=1 accepts — favors the XLA path it was measured against.
-# No regime with a reproducible full-solve win => "auto" never selects the
-# f32 kernel; forward_kernel="pallas" (the interpret-mode test path)
-# still forces it. The df64 kernel remains the measured f64 default.
-
-
-def _kernel_mode(problem: Problem, theta, dtype, options: Options,
-                 need_speculative: bool = True, batch=None):
-    """None (use XLA) or dd_mode bool for the forward megakernel.
-
-    `batch` is the vmapped instance count when known (custom_vmap rules
-    pass axis_size); it gates the f32 dispatch under "auto"."""
-    mode = options.forward_kernel
-    if mode == "xla" or (need_speculative and options.ls_speculative <= 0):
-        return None
-    dd_mode = dtype == jnp.float64
-    if mode == "pallas":
-        return dd_mode
-    if mode == "pallas_df64":
-        return True
-    if jax.default_backend() != "tpu":
-        return None
-    if not dd_mode:
-        return None                   # pruned: see the dispatch note above
-    # dd eligibility: the model must trace through the df64 interpreter,
-    # which raises NotImplementedError on primitives it has no dd rule for
-    try:
-        from .ops.forward_pallas import (_theta_struct,
-                                         _traced_model_cached)
-        _traced_model_cached(problem, _theta_struct(theta), 8, dd_mode)
-    except NotImplementedError:
-        return None
-    return dd_mode
-
-
-def _speculative_batched(problem: Problem, options: Options, dd_mode: bool,
-                         theta, bounds: Bounds, gains: Gains,
-                         nominal: Trial, dL, mu, theta_prev, L_prev,
-                         min_primal_1, filter_pts) -> ForwardResult:
-    """Batched speculative forward pass through the Pallas kernels.
-
-    Acceptance formulas are the vectorized twins of `try_step`'s; the
-    switching rule's powers are precomputed OUTSIDE the kernel via the
-    identity max(-g dL, 0)^sL g^(1-sL) = g max(-dL, 0)^sL."""
-    from .ops.forward_pallas import (forward_metrics_pallas,
-                                     forward_trial_pallas)
-
-    K = options.ls_speculative
-    dtype = nominal.u.dtype
-    B = nominal.u.shape[0]
-    gammas = 0.5 ** jnp.arange(K, dtype=dtype)
-    tau = jnp.maximum(options.tau_min, 1.0 - mu)
-    interpret = None if jax.default_backend() == "tpu" else True
-
-    th, L, J, finite, ftb = forward_metrics_pallas(
-        problem, theta, bounds.lower, bounds.upper, tuple(gains),
-        nominal.x, nominal.u, nominal.phi, nominal.zl, nominal.zu,
-        nominal.il, nominal.iu, mu, tau, gammas,
-        dd_mode=dd_mode, interpret=interpret)
-    th = th.astype(dtype)
-    L = L.astype(dtype)
-    J = J.astype(dtype)
-
-    # acceptance per (instance, candidate)  — [B, K]
-    # dd arithmetic carries ~2^-48 unit roundoff; the Armijo slack uses it
-    # instead of f64 eps so kernel noise cannot flip near-equality accepts
-    eps = jnp.asarray(max(float(jnp.finfo(dtype).eps), 2.0 ** -48
-                          if dd_mode else 0.0), dtype)
-    blocked = jnp.any(
-        (th[:, :, None] >= filter_pts[:, None, :, 0])
-        & (L[:, :, None] >= filter_pts[:, None, :, 1]), axis=-1)
-    A = jnp.maximum(-dL, 0.0) ** options.s_L                  # [B]
-    rhs = options.delta * theta_prev ** options.s_theta
-    switching = (dL < 0.0)[:, None] & (gammas[None, :] * A[:, None]
-                                       > rhs[:, None])
-    armijo = (L - L_prev[:, None] - 10.0 * eps * jnp.abs(L_prev)[:, None]
-              <= options.eta_L * gammas[None, :] * dL[:, None])
-    suff = ((th <= (1.0 - options.gamma_theta) * theta_prev[:, None])
-            | (L <= L_prev[:, None] - options.gamma_L * theta_prev[:, None]))
-    use_armijo = (th <= min_primal_1[:, None]) & switching
-    accept = finite & ftb & ~blocked & jnp.where(use_armijo, armijo, suff)
-
-    found = jnp.any(accept, axis=1)
-    idx = jnp.argmax(accept, axis=1)                          # [B]
-    gamma_sel = gammas[idx]
-
-    (x, u, phi, zl, zu, il, iu, c_raw) = forward_trial_pallas(
-        problem, theta, bounds.lower, bounds.upper, tuple(gains),
-        nominal.x, nominal.u, nominal.phi, nominal.zl, nominal.zu,
-        nominal.il, nominal.iu, mu, tau, gamma_sel,
-        dd_mode=dd_mode, interpret=interpret)
-    cast = lambda a: a.astype(dtype)
-    trial = Trial(x=cast(x), u=cast(u), c_raw=cast(c_raw), il=cast(il),
-                  iu=cast(iu), phi=cast(phi), zl=cast(zl), zu=cast(zu))
-
-    counted = finite & ftb & ~accept
-    num_ls = jnp.where(
-        found,
-        jnp.sum(jnp.where(jnp.arange(K)[None, :] < idx[:, None], counted,
-                          False), axis=1),
-        jnp.sum(jnp.where(counted, 1, 0), axis=1)).astype(jnp.int32)
-    take = lambda a: jnp.take_along_axis(a, idx[:, None], axis=1)[:, 0]
-    return ForwardResult(
-        trial=trial, theta_next=take(th), L_next=take(L),
-        objective=take(J), step_size=gamma_sel, num_ls=num_ls,
-        status=jnp.where(found, jnp.int32(0), jnp.int32(7)),
-        armijo_passed=take(armijo), switching=take(switching))
-
-
-@lru_cache(maxsize=64)
-def _make_speculative(problem: Problem, options: Options):
-    """custom_vmap dispatcher: per-instance XLA path; fused Pallas kernels
-    under vmap when eligible (same pattern as backward._make_sweep)."""
-
-    def single(theta, bounds, gains, nominal, dL, mu, theta_prev, L_prev,
-               min_primal_1, filter_pts):
-        return _forward_pass_speculative_xla(
-            problem, theta, bounds, gains, nominal, dL, mu, theta_prev,
-            L_prev, min_primal_1, filter_pts, options)
-
-    fn = custom_vmap(single)
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, theta, bounds, gains, nominal, dL, mu,
-              theta_prev, L_prev, min_primal_1, filter_pts):
-        def bc(x, b):
-            if b:
-                return x
-            return jnp.broadcast_to(x[None], (axis_size,) + jnp.shape(x))
-
-        (theta, bounds, gains, nominal, dL, mu, theta_prev, L_prev,
-         min_primal_1, filter_pts) = jax.tree.map(
-            bc, [theta, bounds, gains, nominal, dL, mu, theta_prev,
-                 L_prev, min_primal_1, filter_pts], in_batched)
-
-        dd_mode = _kernel_mode(problem, theta, nominal.u.dtype, options,
-                               batch=axis_size)
-        if dd_mode is None:
-            out = jax.vmap(single)(theta, bounds, gains, nominal, dL, mu,
-                                   theta_prev, L_prev, min_primal_1,
-                                   filter_pts)
-        else:
-            out = _speculative_batched(
-                problem, options, dd_mode, theta, bounds, gains, nominal,
-                dL, mu, theta_prev, L_prev, min_primal_1, filter_pts)
-        return out, jax.tree.map(lambda _: True, out)
-
-    return fn
-
-
-def forward_pass_speculative(problem: Problem, theta, bounds: Bounds,
-                             gains: Gains, nominal: Trial, dL, mu,
-                             theta_prev, L_prev, min_primal_1, filter_pts,
-                             options: Options) -> ForwardResult:
-    """Speculative line search (see `_forward_pass_speculative_xla` for the
-    semantics). Batched calls on TPU dispatch to the fused forward
-    megakernel per `options.forward_kernel`."""
-    fn = _make_speculative(problem, options)
-    return fn(theta, bounds, gains, nominal, dL, mu, theta_prev, L_prev,
-              min_primal_1, filter_pts)
-
-
 def forward_pass_hybrid(problem: Problem, theta, bounds: Bounds,
                         gains: Gains, nominal: Trial, dL, mu,
                         theta_prev, L_prev, min_primal_1, filter_pts,
@@ -525,55 +333,3 @@ def forward_pass_hybrid(problem: Problem, theta, bounds: Bounds,
                        options, gamma0=0.5 ** K, skip=found,
                        num_ls0=spec.num_ls)
     return jax.tree.map(lambda a, b: jnp.where(found, a, b), spec, seq)
-
-
-@lru_cache(maxsize=64)
-def _make_rollout(problem: Problem, options: Options):
-    """custom_vmap rollout: per-instance `lax.scan`; ONE fused trial kernel
-    under vmap when eligible. Used by the SEQUENTIAL backtracking line
-    search (`forward_pass`) — each batched trial becomes a single kernel
-    launch instead of a T-stage XLA dispatch chain, with bit-identical
-    selection semantics (only the rollout arithmetic moves)."""
-
-    def single(theta, bounds, gains, nx_, nu_, nphi, nzl, nzu, gamma):
-        return rollout(problem, theta, bounds, gains, nx_, nu_, nphi,
-                       nzl, nzu, gamma)
-
-    fn = custom_vmap(single)
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, theta, bounds, gains, nx_, nu_, nphi,
-              nzl, nzu, gamma):
-        def bc(x, b):
-            if b:
-                return x
-            return jnp.broadcast_to(x[None], (axis_size,) + jnp.shape(x))
-
-        (theta, bounds, gains, nx_, nu_, nphi, nzl, nzu, gamma) = \
-            jax.tree.map(bc, [theta, bounds, gains, nx_, nu_, nphi,
-                              nzl, nzu, gamma], in_batched)
-
-        dd_mode = _kernel_mode(problem, theta, nu_.dtype, options,
-                               need_speculative=False, batch=axis_size)
-        if dd_mode is None:
-            out = jax.vmap(single)(theta, bounds, gains, nx_, nu_, nphi,
-                                   nzl, nzu, gamma)
-        else:
-            from .ops.forward_pallas import forward_trial_pallas
-            dtype = nu_.dtype
-            zero = jnp.zeros(gamma.shape, dtype)
-            ilbar = nu_ - bounds.lower
-            iubar = bounds.upper - nu_
-            (x, u, phi, zl, zu, il, iu, c_raw) = forward_trial_pallas(
-                problem, theta, bounds.lower, bounds.upper, tuple(gains),
-                nx_, nu_, nphi, nzl, nzu, ilbar, iubar, zero, zero, gamma,
-                dd_mode=dd_mode,
-                interpret=(None if jax.default_backend() == "tpu"
-                           else True))
-            cast = lambda a: a.astype(dtype)
-            out = Trial(x=cast(x), u=cast(u), c_raw=cast(c_raw),
-                        il=cast(il), iu=cast(iu), phi=cast(phi),
-                        zl=cast(zl), zu=cast(zu))
-        return out, jax.tree.map(lambda _: True, out)
-
-    return fn

@@ -1,13 +1,13 @@
 """Mixed-precision continuation: f32 bulk phase + f64 certification endgame.
 
-The reference runs Float64 end to end (its LAPACK path is CPU-native f64);
-on TPU, f64 is software-emulated and ~an order of magnitude slower than f32,
-while f32 alone cannot certify a 1e-7 KKT point (eps_f32 ~ 1.2e-7). The
-continuation exploits the interior-point structure: the barrier path down to
-mu ~ 1e-4 is insensitive to f32 rounding, so the bulk of the iterations run
-in f32; the converged-in-f32 state then warm-starts (SURVEY.md §5's
-warm-start API) an f64 solve that only has the endgame left — typically a
-handful of iterations at small mu.
+The reference runs Float64 end to end (its LAPACK path is CPU-native f64).
+An f64 iteration costs more than an f32 one on an accelerator, while f32
+alone cannot certify a 1e-7 KKT point (eps_f32 ~ 1.2e-7). The continuation
+exploits the interior-point structure: the barrier path down to mu ~ 1e-4
+is insensitive to f32 rounding, so the bulk of the iterations run in f32;
+the converged-in-f32 state then warm-starts (SURVEY.md §5's warm-start API)
+an f64 solve that only has the endgame left — typically a handful of
+iterations at small mu.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from .derivatives import evaluate_constraints, relax_constraints
 from .forward import barrier_lagrangian
 from .options import Options
 from .problem import Bounds, Problem
-from .solve import Solution, SolverState, initialize, run
+from .solve import Solution, SolverState, full_precision, initialize, run
 
 
 def _cast_state(state: SolverState, dtype) -> SolverState:
@@ -31,6 +31,7 @@ def _cast_state(state: SolverState, dtype) -> SolverState:
     return jax.tree.map(cast, state)
 
 
+@full_precision
 def promote_state(problem: Problem, bounds: Bounds, state: SolverState,
                   theta, options: Options) -> SolverState:
     """Cast an f32 state to f64 and refresh the merit bookkeeping in full
@@ -109,7 +110,6 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
                         rescue_failed=True,
                         rescue_ls_speculative: Optional[int] = None,
                         rescue_max_iterations: Optional[int] = None,
-                        rescue_host_final: bool = False,
                         phase2_chunk: Optional[int] = None,
                         phase2_compact=False,
                         phase1_adapt_ls=None,
@@ -125,10 +125,10 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
     rescue (hundreds of iterations) that can cost more wall than the rest
     of the batch combined; the cap bounds that.
 
-    `phase2_compact` (batched only): the f64 endgame is compute-bound on
-    TPU (software-emulated f64), so lockstep lanes that already converged
-    still pay full price; compaction gathers the still-running instances
-    into a smaller batch at phase-2 chunk boundaries (`phase2_chunk`,
+    `phase2_compact` (batched only): lockstep lanes that already converged
+    still pay for every masked f64 iteration; compaction gathers the
+    still-running instances into a smaller batch at phase-2 chunk
+    boundaries (`phase2_chunk`,
     default `chunk` — set it well below the phase-2 iteration cap or there
     are no boundaries to compact at). True = powers of two from half the
     batch down to 64; or pass an explicit descending size tuple.
@@ -138,7 +138,7 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
       * True — promote them anyway; the f64 endgame re-solves them in
         lockstep with the healthy batch. Correct but ruinous: one rescue
         runs hundreds of early-stage f64 iterations whose heavy line-search
-        trip counts are max-over-batch (docs/PERF.md straggler economics).
+        trip counts are max-over-batch.
       * False — deny them the endgame and report them failed (the
         throughput-max config).
       * "restart" — deny them the lockstep endgame, then RE-SOLVE just the
@@ -148,8 +148,8 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
         iterations vs 400-515 for continuing the poisoned f32 state, and
         the compact batch never drags the healthy instances — success
         approaches the pure-f64 campaign's at a bounded wall cost. The
-        rescue line search is sequential-backtracking by default
-        (reference semantics; `rescue_ls_speculative` overrides).
+        rescue line search is the caller's (`rescue_ls_speculative`
+        overrides its K).
 
     `rescue_max_iterations`: iteration cap for the restart rescue batch
     only (default `options.max_iterations`). The reference runs
@@ -157,19 +157,6 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
     lockstep batch at fewer iterations can still give the compacted
     rescue stragglers the full reference budget — they are the instances
     competing with the reference's 100/100.
-
-    `rescue_host_final` (batched TPU runs): after every device wave,
-    re-solve any still-unconverged instances from scratch on the HOST CPU
-    in native f64 and scatter the results back. On TPU the f64 path runs
-    the double-single (df64, ~49-bit mantissa) megakernels; on the graded
-    KKT systems near the barrier floor (Sigma ~ 1e10) that roundoff floor
-    shows up as a dual-infeasibility plateau at ~2e-7..5e-6 — measured
-    round 5: the per-2048 residue of 9-15 instances all sat at
-    primal ~1e-14 / cs = mu = 1e-8 / dual 2e-7..5e-6 after 1000 df64
-    iterations, while a native-f64 CPU solve of the same instances
-    converges in a median 109 iterations. The host wave costs ~2-3 s per
-    instance and runs inside the measured wall; it is the precision
-    escape hatch, not a throughput path (grouped at <=64 lanes).
 
     `phase1_adapt_ls`: ascending K-candidate tuple for per-chunk adaptive
     hybrid line search in the f32 bulk phase (see run_chunked.adapt_ls).
@@ -208,12 +195,7 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
     b64 = jax.tree.map(cast64, bounds)
     th64 = jax.tree.map(cast64, theta) if theta is not None else None
     opts64 = options
-    if batched:
-        from .autotune import tune
-        opts64 = tune(options, int(jnp.shape(s32.k)[0]), jnp.float64)
     if phase2_ls_speculative is not None:
-        # explicit K beats the table; other tuned knobs (e.g. the
-        # semantics-preserving ls_spec_continue) still apply
         opts64 = opts64.__class__(**{
             **opts64.__dict__,
             "ls_speculative": phase2_ls_speculative})
@@ -276,11 +258,10 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
             idx = np.concatenate([failed, failed[
                 np.arange(target - failed.size) % failed.size]])
             jidx = jnp.asarray(idx)
-            # sequential backtracking by default (reference semantics —
-            # the rescue exists for SUCCESS; auto_tune off so the measured
-            # throughput table cannot flip it to speculative)
+            # the caller's phase-1 line search unless overridden (the
+            # rescue exists for success, not throughput)
             opts_r = options.__class__(**{
-                **options.__dict__, "auto_tune": False,
+                **options.__dict__,
                 "ls_speculative": (rescue_ls_speculative
                                    if rescue_ls_speculative is not None
                                    else options.ls_speculative),
@@ -307,91 +288,12 @@ def solve_mixed_chunked(problem: Problem, bounds: Bounds, x1, u_init,
                                       _gather_tree(
                                           s_r, jnp.arange(failed.size)))}
 
-    if rescue_host_final and batched:
-        s64 = _host_final_wave(problem, bounds, x1, u_init, theta, options,
-                               rescue_max_iterations, s64,
-                               info if return_info else None)
-
     sol = Solution(
         x=s64.x, u=s64.u, phi=s64.phi, zl=s64.zl, zu=s64.zu, lam=s64.lam,
         objective=s64.objective, iterations=s64.k, status=s64.status,
         converged=s64.converged, primal_inf=s64.primal_inf,
         dual_inf=s64.dual_inf, cs_inf=s64.cs_inf, mu=s64.mu)
     return (sol, info) if return_info else sol
-
-
-def _host_final_wave(problem, bounds, x1, u_init, theta, options,
-                     rescue_max_iterations, s64, info):
-    """Native-f64 host-CPU re-solve of the still-unconverged residue.
-
-    The TPU f64 path's double-single kernels carry a ~49-bit mantissa whose
-    roundoff floor on the graded endgame KKT systems blocks ~0.5% of
-    instances from the 1e-7 dual tolerance (see solve_mixed_chunked
-    docstring); a from-scratch native-f64 solve on the host clears them in
-    reference-level iteration counts. Groups of <=64 lanes, padded to a
-    power of two so the handful of CPU programs are compiled once and
-    reused across runs."""
-    import numpy as np
-
-    from .chunked import _gather_tree, _scatter_tree, solve_chunked
-
-    still = np.where(~np.asarray(s64.converged))[0]
-    if info is not None:
-        info["host_final"] = None
-    if still.size == 0:
-        return s64
-    cpu = jax.devices("cpu")[0]
-    dev = list(s64.k.devices())[0]
-    cast64 = lambda a: (np.asarray(a, np.float64)
-                       if np.issubdtype(np.asarray(a).dtype, np.floating)
-                       else np.asarray(a))
-    opts_h = options.__class__(**{
-        **options.__dict__, "auto_tune": False, "ls_speculative": 0,
-        "ls_spec_continue": False,
-        # force XLA everywhere: kernel "auto" dispatch keys on
-        # jax.default_backend(), which still reads "tpu" in this process
-        # even though the computation is CPU-committed — a Pallas call
-        # would fail to lower ("Only interpret mode is supported on CPU")
-        "backward_kernel": "xla", "forward_kernel": "xla",
-        # the host wave is the last line: give it at least the reference's
-        # own budget (max_iter=1000, src/options.jl:5) regardless of the
-        # bench's tighter chip caps — measured: seed-1004 instance 262
-        # converges at k=649, just past the 600 chip-rescue cap
-        "max_iterations": max(1000, rescue_max_iterations
-                              or options.max_iterations)})
-    nb = jax.tree.map(cast64, bounds)
-    nth = None if theta is None else jax.tree.map(cast64, theta)
-    nx1 = cast64(x1)
-    nu0 = cast64(u_init)
-    snaps = []
-    for g0 in range(0, still.size, 64):
-        grp = still[g0:g0 + 64]
-        target = max(8, 1 << (int(grp.size) - 1).bit_length())
-        idx = np.concatenate([grp, grp[np.arange(target - grp.size)
-                                       % grp.size]])
-        put = lambda tree: jax.device_put(
-            jax.tree.map(lambda a: a[idx], tree), cpu)
-        # CPU lockstep still pays for frozen lanes: compact the batch as
-        # the floor-class majority converges (~k 110-160) so a straggler
-        # finishes on a narrow batch instead of dragging all lanes
-        compact = tuple(s for s in (16, 8) if s < target) or None
-        with jax.default_device(cpu):
-            _, s_h = solve_chunked(
-                problem, put(nb), put(nx1), put(nu0),
-                theta=None if nth is None else put(nth),
-                options=opts_h, chunk=60, batched=True,
-                return_state=True, compact_sizes=compact)
-        sub = _gather_tree(s_h, jnp.arange(grp.size))
-        s64 = _scatter_tree(s64, jnp.asarray(grp),
-                            jax.device_put(sub, dev))
-        if info is not None:
-            snaps.append((grp, _phase_snapshot(sub)))
-    if info is not None and snaps:
-        cat = {k: np.concatenate([s[k] for _, s in snaps])
-               for k in snaps[0][1]}
-        info["host_final"] = {
-            "indices": np.concatenate([g for g, _ in snaps]), **cat}
-    return s64
 
 
 def _phase_snapshot(state) -> dict:

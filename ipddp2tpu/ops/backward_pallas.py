@@ -1,33 +1,35 @@
-"""Pallas TPU megakernel: the ENTIRE backward sweep in one kernel launch.
+"""The whole backward sweep as one Pallas kernel for NVIDIA GPUs (Triton).
 
-Round-1 measurement (docs/PERF.md, CLAUDE.md): the sequential `lax.scan`
-backward pass is latency-bound on TPU — ~100 stages x ~150 tiny XLA ops per
-stage (KKT assembly + factorization loop) is tens of thousands of kernel
-dispatches inside the device program, ~3 ms per stage at batch 64 where the
-arithmetic itself is microseconds. This kernel removes that wall: one
-`pallas_call` executes the whole reverse-time recursion (reference:
-src/backward_pass.jl:58-189) with
+Under `vmap` the scan form of the sweep (`backward._run_pass`, reference:
+src/backward_pass.jl:58-189) is a reverse `lax.scan` over T stages whose
+body factors a small KKT matrix column by column: on a GPU that is several
+small fusions per column, per stage and per reg-ladder restart, each far
+too small to fill the card. This kernel runs the entire reverse-time
+recursion in one launch:
 
-  * grid = (batch_tiles, T): TPU grid execution is sequential with the last
-    dimension innermost, so the value-function carry (Vx, Vxx) lives in VMEM
-    scratch and persists across time steps; per-stage derivative blocks
-    stream HBM->VMEM through the automatic Pallas pipeline (double-buffered);
-  * batch-on-lanes layout [stage-dims..., B]: every arithmetic op in the
-    stage math and the factorization is a full-width vector op across problem
-    instances (implicit one-hot diagonal pivoting + refinement + inertia logic,
-    the lanes twin of `ops/ldlt.py`);
-  * the full per-stage pipeline — Sigma terms, Qu/C/H/B assembly
-    (reference: src/backward_pass.jl:62-99), second-order terms, KKT
-    factor+inertia+solve (reference: src/inertia_correction.jl:257-276),
-    closed-form bound-dual gains (reference: src/backward_pass.jl:152-172),
-    value recursion (reference: src/backward_pass.jl:176-189) — happens
-    in-register/VMEM with zero HBM roundtrips between steps.
+  * the grid runs over tiles of `tile_b` problem instances only; each
+    program walks the T stages itself in a `lax.fori_loop` whose carry is
+    the value function (Vx, Vxx), the expected decrease dL and the
+    fail / singular-at-first-failure flags;
+  * one lane per instance: every matrix entry is a `[tile_b]` vector;
+  * the stage's KKT matrix, its factors and the right-hand sides live in a
+    per-program scratch buffer (an extra output, L1/L2-resident), walked by
+    loops over rows and columns. Written out entry by entry, the stage
+    would be tens of thousands of operations, which the Triton compiler
+    cannot take in reasonable time; the loops keep the kernel small;
+  * per-instance pivots make the column reads gathers and the solution
+    writes scatters within the program's own scratch;
+  * inputs are packed tile-major, `[n_tiles, T, entries * tile_b]`, so an
+    entry's lane vector is one coalesced load; the batch is padded to whole
+    tiles;
+  * the same kernel serves f32 (the bulk phase) and f64 (the endgame).
 
-Semantics match `backward._run_pass` (the scan path) bit-for-bit up to
-floating-point reassociation: same pivot order (max-|diagonal|), same
-refinement count, same backward-stability residual gate, same
-fail/singular-at-first-failure bookkeeping. Parity is pinned by
-tests/test_backward_pallas.py in interpret mode.
+Arithmetic matches the scan path up to floating-point reassociation: the
+same max-|diagonal| pivot order (`ops.ldlt.ldlt_factor_pivoted`, ties
+broken by the lowest original row), the same refinement count, the same
+backward-stability residual gate and the same fail/singular bookkeeping.
+The closed-form bound-dual gains (reference: src/backward_pass.jl:152-172)
+are elementwise in the solved gains and are formed by the wrapper in XLA.
 """
 
 from __future__ import annotations
@@ -37,414 +39,432 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 
-def _b2f(pred, dt):
-    """bool -> float via select (a direct bool cast lowers through i64
-    vector constants in Mosaic, which the TPU layout pass rejects)."""
-    return jnp.where(pred, jnp.ones((), dt), jnp.zeros((), dt))
+def _layout(nx, nu, nc, has_sec):
+    """Static entry offsets of the per-stage input pack: name -> (offset,
+    shape). The order is the order the wrapper concatenates in."""
+    shapes = [("fx", (nx, nx)), ("fu", (nx, nu)), ("lx", (nx,)),
+              ("lu", (nu,)), ("lxx", (nx, nx)), ("lux", (nu, nx)),
+              ("luu", (nu, nu))]
+    if nc:
+        shapes += [("cx", (nc, nx)), ("cu", (nc, nu)), ("c", (nc,)),
+                   ("phi", (nc,))]
+    if has_sec:
+        shapes += [("sxx", (nx, nx)), ("sux", (nu, nx)), ("suu", (nu, nu))]
+    shapes += [("il", (nu,)), ("iu", (nu,)), ("zl", (nu,)), ("zu", (nu,))]
+    layout, off = {}, 0
+    for name, shp in shapes:
+        layout[name] = (off, shp)
+        n = 1
+        for d in shp:
+            n *= d
+        off += n
+    return layout, off
 
 
-def _eye(n, dt):
-    """Identity matrix without jnp.eye (whose iotas are i64 under x64)."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-    return jnp.where(r == c, jnp.ones((), dt), jnp.zeros((), dt))
-
-def _ldlt_solve_lanes(A0, rhs, *, m, refine, rtol):
-    """Batched-on-lanes pivoted LDL^T factor + solve + inertia on values.
-
-    A0: [m, m, B], rhs: [m, nk, B]. Implicit max-|diagonal| pivoting via
-    one-hot row masks (no physical swaps — identical pivot sequence to
-    `ops.ldlt.ldlt_factor_pivoted`). Returns
-    (X [m, nk, B], n_pos [B] i32, n_zero [B] i32, finite [B] bool,
-    solve_ok [B] bool).
-    """
-    B = A0.shape[-1]
-    dt = A0.dtype
-    A = A0
-    eliminated = jnp.zeros((m, B), dtype=jnp.bool_)
-    # Mosaic only lowers float reductions reliably; argmax / bool-all /
-    # int sums are rewritten as float max/min/sum reductions below.
-    # int32 iota cast to float (Mosaic rejects float tpu.iota directly)
-    row_f = jax.lax.broadcasted_iota(jnp.int32, (m, B), 0).astype(dt)
-
-    onehots, lcols, ds = [], [], []
-    for j in range(m):
-        diag = jnp.stack([A[i, i, :] for i in range(m)], axis=0)   # [m, B]
-        # all scalar literals pinned to dt: even weak-typed Python floats
-        # lower to f64 constants + casts under x64, unsupported in Mosaic
-        cand = jnp.where(eliminated, jnp.asarray(float("-inf"), dt),
-                         jnp.abs(diag))
-        # argmax with first-occurrence tiebreak, via float reductions
-        mx = jnp.max(cand, axis=0)                                 # [B]
-        eq = cand == mx[None, :]
-        ridx = jnp.min(jnp.where(eq, row_f, jnp.asarray(float(m), dt)),
-                       axis=0)                                     # [B]
-        onehot = row_f == ridx[None, :]                            # [m, B]
-        d_j = jnp.sum(jnp.where(onehot, diag, jnp.zeros((), dt)),
-                      axis=0)                                      # [B]
-
-        col = jnp.zeros_like(diag)
-        for i in range(m):
-            col = col + jnp.where(onehot[i][None, :], A[:, i, :],
-                                  jnp.zeros((), dt))
-        safe_d = jnp.where(d_j == 0.0, jnp.ones((), dt), d_j)
-        l = col / safe_d[None, :]
-        l = jnp.where(eliminated | onehot, jnp.zeros((), dt), l)   # [m, B]
-
-        dl = l * d_j[None, :]
-        A = A - dl[:, None, :] * l[None, :, :]
-
-        onehots.append(onehot)
-        lcols.append(l)
-        ds.append(d_j)
-        eliminated = eliminated | onehot
-
-    d = jnp.stack(ds, axis=0)                                      # [m, B]
-    # Float-count reductions (int32/bool reductions are unsupported by
-    # Mosaic: "Unsupported element type for the selected reduction"); the
-    # counts are exact small integers in float.
-    n_pos = jnp.sum(_b2f(d > 0.0, dt), axis=0).astype(jnp.int32)
-    n_zero = jnp.sum(_b2f(d == 0.0, dt), axis=0).astype(jnp.int32)
-    finite = jnp.sum(_b2f(~jnp.isfinite(d), dt), axis=0) == 0.0
-
-    def solve(b):                       # b: [m, nk, B]
-        res = b
-        z = []
-        for j in range(m):              # forward: z = W^{-1} b
-            zj = jnp.sum(jnp.where(onehots[j][:, None, :], res,
-                                   jnp.zeros((), res.dtype)),
-                         axis=0)        # [nk, B]
-            w = _b2f(onehots[j], res.dtype) + lcols[j]
-            res = res - w[:, None, :] * zj[None, :, :]
-            z.append(zj)
-        x = jnp.zeros_like(b)
-        for j in range(m - 1, -1, -1):  # backward: W^T x = D^{-1} z
-            safe_d = jnp.where(ds[j] == 0.0, jnp.ones((), dt), ds[j])
-            rhs_j = z[j] / safe_d[None, :] - jnp.sum(
-                lcols[j][:, None, :] * x, axis=0)
-            # select, not bool*float (implicit bool casts lower through
-            # i64 vector constants the TPU layout pass rejects)
-            x = x + jnp.where(onehots[j][:, None, :],
-                              rhs_j[None, :, :], jnp.zeros((), dt))
-        return x
-
-    def matvec(x):
-        ax = jnp.zeros_like(x)
-        for i in range(m):
-            # NB: no inline-None indexing — `A0[:, i, None, :]` lowers to a
-            # 3D lax.gather, which Mosaic cannot lower ("Only 2D gather").
-            ax = ax + A0[:, i, :][:, None, :] * x[i][None, :, :]
-        return ax
-
-    x = solve(rhs)
-    for _ in range(refine):             # fused iterative refinement
-        x = x + solve(rhs - matvec(x))
-
-    # Backward-stability gate (matches ops.ldlt.ldlt_solve_refined with
-    # check_residual=True: Frobenius norms, rtol * (|A||x| + |b|)).
-    r = rhs - matvec(x)
-    ssq = lambda a: jnp.sqrt(jnp.sum(jnp.sum(a * a, axis=0), axis=0))
-    nr = ssq(r)
-    na = ssq(A0)
-    nx_ = ssq(x)
-    nb = ssq(rhs)
-    x_finite = jnp.sum(jnp.sum(
-        _b2f(~jnp.isfinite(x), A0.dtype), axis=0), axis=0) == 0.0
-    solve_ok = (nr <= rtol * (na * nx_ + nb)) & x_finite
-    return x, n_pos, n_zero, finite, solve_ok
+def _flat_index(shape, idx):
+    flat = 0
+    for d, i in zip(shape, idx):
+        flat = flat * d + i
+    return flat
 
 
-def _kernel(scal_ref, lTx_ref, lTxx_ref,
-            fx_ref, fu_ref, lx_ref, lu_ref, lxx_ref, lux_ref, luu_ref,
-            cx_ref, cu_ref, sec_ref, c_ref, il_ref, iu_ref,
-            phi_ref, zl_ref, zu_ref,
-            alpha_ref, beta_ref, psi_ref, omega_ref,
-            chi_l_ref, zeta_l_ref, chi_u_ref, zeta_u_ref,
-            dL_ref, flags_ref,
-            Vx_s, Vxx_s,
-            *, nx, nu, nc, refine, rtol):
-    i = pl.program_id(1)
-    dtype = lx_ref.dtype
+def sum_terms(terms):
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
 
-    @pl.when(i == 0)
-    def _init():
-        Vx_s[...] = lTx_ref[...]
-        Vxx_s[...] = lTxx_ref[...]
-        dL_ref[0, :] = jnp.zeros((dL_ref.shape[1],), dL_ref.dtype)
-        flags_ref[...] = jnp.zeros(flags_ref.shape, flags_ref.dtype)
 
-    mu = scal_ref[0, :]                  # [B]
-    reg = scal_ref[1, :]
-    dc = scal_ref[2, :]
+def _scratch_layout(m, nk):
+    """Row offsets of the per-program scratch regions (each row is one
+    `[tile_b]` lane vector)."""
+    sizes = [("A", m * m), ("K0", m * m), ("L", m * m), ("D", m),
+             ("RB", m * nk), ("RES", m * nk), ("Z", m * nk), ("X", m * nk),
+             ("DX", m * nk), ("R", m * nk)]
+    out, off = {}, 0
+    for name, n in sizes:
+        out[name] = off
+        off += n
+    return out, off
 
-    Vx = Vx_s[...]                       # [nx, B]
-    Vxx = Vxx_s[...]                     # [nx, nx, B]
 
-    fx = fx_ref[0]                       # [nx, nx, B]
-    fu = fu_ref[0]                       # [nx, nu, B]
-    lx = lx_ref[0]                       # [nx, B]
-    lu = lu_ref[0]                       # [nu, B]
-    lxx = lxx_ref[0]
-    lux = lux_ref[0]                     # [nu, nx, B]
-    luu = luu_ref[0]
-    sec = sec_ref[0]                     # [nz, nz, B]
-    il_t = il_ref[0]                     # [nu, B]
-    iu_t = iu_ref[0]
-    zl_t = zl_ref[0]
-    zu_t = zu_ref[0]
+def _kernel(head_ref, w_ref, x_ref, dl_ref, flag_ref, scr_ref, piv_ref, *,
+            T, tile_b, nx, nu, nc, has_sec, refine, rtol, layout):
+    """One program: `tile_b` instances, all T stages. Refs are tile-major
+    (`[n_tiles, ..., entries * tile_b]`), so a lane vector of entry e is
+    the contiguous slice `e * tile_b + lane`; a per-lane entry index makes
+    the same expression a gather or scatter."""
+    m, nk = nu + nc, nx + 1
+    pid = pl.program_id(0)
+    lane = jnp.arange(tile_b, dtype=jnp.int32)
+    S, _ = _scratch_layout(m, nk)
+    loop = jax.lax.fori_loop
 
-    sl = 1.0 / il_t                      # 0 where il = +inf
-    su = 1.0 / iu_t
-    sig_l = zl_t * sl
-    sig_u = zu_t * su
+    def each(n, f):
+        """for i in range(n): f(i), as one loop (no unrolling)."""
+        loop(0, n, lambda i, c: (f(i), c)[1], ())
 
-    # Qu = lu + cu' phi + fu' Vx - mu/il + mu/iu   [nu, B]
-    Qu = lu - mu[None, :] * sl + mu[None, :] * su
-    for k in range(nx):
-        Qu = Qu + fu[k] * Vx[k][None, :]
-    if nc > 0:
-        cx = cx_ref[0]                   # [nc, nx, B]
-        cu = cu_ref[0]                   # [nc, nu, B]
-        c_t = c_ref[0]                   # [nc, B]
-        phi_t = phi_ref[0]               # [nc, B]
-        for cc in range(nc):
-            Qu = Qu + cu[cc] * phi_t[cc][None, :]
+    def at(e):
+        return e * tile_b + lane
 
-    # fuV = fu' Vxx [nu, nx, B]; fxV = fx' Vxx [nx, nx, B]
-    fuV = jnp.zeros((nu, nx) + Qu.shape[-1:], dtype)
-    fxV = jnp.zeros((nx, nx) + Qu.shape[-1:], dtype)
-    for k in range(nx):
-        fuV = fuV + fu[k][:, None, :] * Vxx[k][None, :, :]
-        fxV = fxV + fx[k][:, None, :] * Vxx[k][None, :, :]
+    def sld(e):
+        return plgpu.load(scr_ref.at[pid, at(e)])
 
-    C = lxx + sec[:nx, :nx]
-    H = luu + sec[nx:, nx:]
-    Bm = lux + sec[nx:, :nx]
-    for k in range(nx):
-        # (no inline-None indexing — it lowers to >2D gather; see matvec)
-        fxVk = fxV[:, k, :][:, None, :]
-        fuVk = fuV[:, k, :][:, None, :]
-        C = C + fxVk * fx[k][None, :, :]
-        H = H + fuVk * fu[k][None, :, :]
-        Bm = Bm + fuVk * fx[k][None, :, :]
-    eye_nu = _eye(nu, dtype)
-    H = H + eye_nu[:, :, None] * (sig_l + sig_u + reg[None, :])[:, None, :]
+    def sst(e, v):
+        plgpu.store(scr_ref.at[pid, at(e)], v)
 
-    # KKT assembly: K = [H cu'; cu -dc I]   [m, m, B]
-    if nc > 0:
-        cuT = jnp.transpose(cu, (1, 0, 2))               # [nu, nc, B]
-        eye_nc = _eye(nc, dtype)
-        dcI = eye_nc[:, :, None] * dc[None, None, :]
-        top = jnp.concatenate([H, cuT], axis=1)          # [nu, m, B]
-        bot = jnp.concatenate([cu, -dcI], axis=1)        # [nc, m, B]
-        K = jnp.concatenate([top, bot], axis=0)
-        rhs = jnp.concatenate([
-            jnp.concatenate([-Qu[:, None, :], -Bm], axis=1),
-            jnp.concatenate([-c_t[:, None, :], -cx], axis=1),
-        ], axis=0)                                       # [m, nx+1, B]
-    else:
-        K = H
-        rhs = jnp.concatenate([-Qu[:, None, :], -Bm], axis=1)
+    def hld(e):
+        return plgpu.load(head_ref.at[pid, at(e)])
 
-    m = nu + nc
-    X, n_pos, n_zero, finite, solve_ok = _ldlt_solve_lanes(
-        K, rhs, m=m, refine=refine, rtol=rtol)
+    mu, reg, dc = hld(0), hld(1), hld(2)
+    dt = mu.dtype
+    zero = jnp.zeros_like(mu)
+    Vx0 = [hld(3 + i) for i in range(nx)]
+    Vxx0 = [[hld(3 + nx + i * nx + j) for j in range(nx)]
+            for i in range(nx)]
 
-    alpha = X[:nu, 0, :]                 # [nu, B]
-    beta = X[:nu, 1:, :]                 # [nu, nx, B]
+    def n_rows(rows):
+        return sum_terms([v * v for v in rows])
 
-    chi_l = mu[None, :] * sl - zl_t - sig_l * alpha
-    zeta_l = -sig_l[:, None, :] * beta
-    chi_u = mu[None, :] * su - zu_t + sig_u * alpha
-    zeta_u = sig_u[:, None, :] * beta
+    def stage(t, Vx, Vxx):
+        def w(name, *idx):
+            off, shp = layout[name]
+            return plgpu.load(w_ref.at[pid, t, at(off + _flat_index(shp,
+                                                                   idx))])
 
-    # Value recursion + expected decrease
-    Vxx_n = C
-    for k in range(nu):
-        Vxx_n = Vxx_n + beta[k][:, None, :] * Bm[k][None, :, :]
-    Vx_n = lx + jnp.sum(beta * Qu[:, None, :], axis=0)
-    for k in range(nx):                  # fx' Vx
-        Vx_n = Vx_n + fx[k] * Vx[k][None, :]
-    dL_new = jnp.sum(Qu * alpha, axis=0)
-    if nc > 0:
-        psi = X[nu:, 0, :]               # [nc, B]
-        omega = X[nu:, 1:, :]            # [nc, nx, B]
-        for cc in range(nc):
-            Vxx_n = Vxx_n + omega[cc][:, None, :] * cx[cc][None, :, :]
-            Vx_n = Vx_n + cx[cc] * phi_t[cc][None, :] \
-                + omega[cc] * c_t[cc][None, :]
-        dL_new = dL_new + jnp.sum(c_t * psi, axis=0)
-        psi_ref[0] = psi
-        omega_ref[0] = omega
-    # Symmetrize: roundoff asymmetry amplifies ~1.5x/stage otherwise.
-    Vxx_n = 0.5 * (Vxx_n + jnp.transpose(Vxx_n, (1, 0, 2)))
+        # --- KKT assembly: K = [H cu'; cu -dc I], rhs = -[Qu B; c cx] ---
+        fx = [[w("fx", i, j) for j in range(nx)] for i in range(nx)]
+        fxV = [[sum_terms([fx[k][i] * Vxx[k][l] for k in range(nx)])
+                for l in range(nx)] for i in range(nx)]
+        C = [[w("lxx", i, j) + sum_terms([fxV[i][l] * fx[l][j]
+                                          for l in range(nx)])
+              for j in range(nx)] for i in range(nx)]
+        if has_sec:
+            C = [[C[i][j] + w("sxx", i, j) for j in range(nx)]
+                 for i in range(nx)]
 
-    alpha_ref[0] = alpha
-    beta_ref[0] = beta
-    chi_l_ref[0] = chi_l
-    zeta_l_ref[0] = zeta_l
-    chi_u_ref[0] = chi_u
-    zeta_u_ref[0] = zeta_u
+        def u_row(a, norms):
+            nK, nB = norms
+            fu_a = [w("fu", k, a) for k in range(nx)]
+            fuV = [sum_terms([fu_a[k] * Vxx[k][l] for k in range(nx)])
+                   for l in range(nx)]
+            sl = 1.0 / w("il", a)                # 0 where il = +inf
+            su = 1.0 / w("iu", a)
+            sig = w("zl", a) * sl + w("zu", a) * su
+            qu = w("lu", a)
+            for c in range(nc):
+                qu = qu + w("cu", c, a) * w("phi", c)
+            for k in range(nx):
+                qu = qu + fu_a[k] * Vx[k]
+            qu = qu - mu * sl + mu * su
 
-    Vx_s[...] = Vx_n
-    Vxx_s[...] = Vxx_n
-    dL_ref[0, :] = dL_ref[0, :] + dL_new
+            def h_entry(b, nK):
+                h = w("luu", a, b)
+                h = jnp.where(a == b, h + sig, h)
+                h = h + sum_terms([fuV[l] * w("fu", l, b)
+                                   for l in range(nx)])
+                if has_sec:
+                    h = h + w("suu", a, b)
+                h = jnp.where(a == b, h + reg, h)
+                sst(S["A"] + a * m + b, h)
+                sst(S["K0"] + a * m + b, h)
+                return nK + h * h
 
-    stage_ok = finite & (n_zero == 0) & (n_pos == nu) & solve_ok
-    prev_fail = flags_ref[0, :]
-    first_fail = (prev_fail == 0) & (~stage_ok)
-    i32_one = jnp.ones((), jnp.int32)
-    i32_zero = jnp.zeros((), jnp.int32)
-    flags_ref[1, :] = flags_ref[1, :] | jnp.where(
-        first_fail & (n_zero > 0), i32_one, i32_zero)
-    flags_ref[0, :] = prev_fail | jnp.where(~stage_ok, i32_one, i32_zero)
+            nK = loop(0, nu, h_entry, nK)
+            for c in range(nc):
+                v = w("cu", c, a)
+                for e in (a * m + nu + c, (nu + c) * m + a):
+                    sst(S["A"] + e, v)
+                    sst(S["K0"] + e, v)
+                nK = nK + 2.0 * v * v
+            row = [-qu]
+            for j in range(nx):
+                bm = w("lux", a, j) + sum_terms([fuV[l] * fx[l][j]
+                                                 for l in range(nx)])
+                if has_sec:
+                    bm = bm + w("sux", a, j)
+                row.append(-bm)
+            for k, v in enumerate(row):
+                sst(S["RB"] + a * nk + k, v)
+            return nK, nB + n_rows(row)
+
+        nK, nB = loop(0, nu, u_row, (zero, zero))
+        for c in range(nc):
+            for e in range(nc):
+                v = -dc if c == e else zero
+                sst(S["A"] + (nu + c) * m + nu + e, v)
+                sst(S["K0"] + (nu + c) * m + nu + e, v)
+                nK = nK + v * v
+            row = [-w("c", c)] + [-w("cx", c, j) for j in range(nx)]
+            for k, v in enumerate(row):
+                sst(S["RB"] + (nu + c) * nk + k, v)
+            nB = nB + n_rows(row)
+
+        # --- pivoted LDL^T: symmetric max-|diagonal| pivots, first lowest
+        # row on ties, NaN wins (jnp.argmax); implicit row masks ---
+        def column(j, carry):
+            elim, n_pos, n_zero, finite = carry
+
+            def argmax(i, c):
+                best, p = c
+                cand = jnp.where(((elim >> i) & 1) == 1, -jnp.inf,
+                                 jnp.abs(sld(S["A"] + i * (m + 1))))
+                take = (cand > best) | (jnp.isnan(cand) & ~jnp.isnan(best))
+                return (jnp.where(take, cand, best),
+                        jnp.where(take, i, p))
+
+            _, p = loop(0, m, argmax, (jnp.full_like(mu, -jnp.inf),
+                                       jnp.zeros_like(lane)))
+            plgpu.store(piv_ref.at[pid, at(j)], p)
+            d = sld(S["A"] + p * (m + 1))
+            sst(S["D"] + j, d)
+            safe = jnp.where(d == 0.0, jnp.ones_like(d), d)
+            elim = elim | (jnp.ones_like(p) << p)
+
+            def l_entry(r):
+                l = jnp.where(((elim >> r) & 1) == 1, zero,
+                              sld(S["A"] + r * m + p) / safe)
+                sst(S["L"] + j * m + r, l)
+
+            each(m, l_entry)
+
+            def update(r):
+                dl = sld(S["L"] + j * m + r) * d
+
+                def entry(k):
+                    e = S["A"] + r * m + k
+                    sst(e, sld(e) - dl * sld(S["L"] + j * m + k))
+
+                each(m, entry)
+
+            each(m, update)
+            one, nil = jnp.int32(1), jnp.int32(0)
+            return (elim, n_pos + jnp.where(d > 0.0, one, nil),
+                    n_zero + jnp.where(d == 0.0, one, nil),
+                    finite & jnp.isfinite(d))
+
+        _, n_pos, n_zero, finite = loop(
+            0, m, column, (jnp.zeros_like(lane), jnp.zeros_like(lane),
+                           jnp.zeros_like(lane), jnp.ones_like(mu) > 0))
+
+        def copy(src, dst):
+            def body(r):
+                for k in range(nk):
+                    sst(dst + r * nk + k, sld(src + r * nk + k))
+            each(m, body)
+
+        def solve(src, dst):
+            """dst = K^{-1} src from the factors (W z = b, W^T x = D^-1 z,
+            W = P^T L)."""
+            copy(src, S["RES"])
+
+            def fwd(j):
+                p = plgpu.load(piv_ref.at[pid, at(j)])
+                z = [sld(S["RES"] + p * nk + k) for k in range(nk)]
+                for k in range(nk):
+                    sst(S["Z"] + j * nk + k, z[k])
+
+                def upd(r):
+                    l = sld(S["L"] + j * m + r)
+                    for k in range(nk):
+                        e = S["RES"] + r * nk + k
+                        sst(e, sld(e) - l * z[k])
+
+                each(m, upd)
+
+            each(m, fwd)
+
+            def clear(r):
+                for k in range(nk):
+                    sst(dst + r * nk + k, zero)
+
+            each(m, clear)
+
+            def bwd(jj):
+                j = m - 1 - jj
+                d = sld(S["D"] + j)
+                safe = jnp.where(d == 0.0, jnp.ones_like(d), d)
+
+                def acc(r, s):
+                    l = sld(S["L"] + j * m + r)
+                    return tuple(s[k] - l * sld(dst + r * nk + k)
+                                 for k in range(nk))
+
+                s = loop(0, m, acc, tuple(sld(S["Z"] + j * nk + k) / safe
+                                         for k in range(nk)))
+                p = plgpu.load(piv_ref.at[pid, at(j)])
+                for k in range(nk):
+                    sst(dst + p * nk + k, s[k])
+
+            each(m, bwd)
+
+        def residual(x):
+            """R = rhs - K x; returns ||R||_F^2."""
+            def row(i, nr):
+                def acc(j, s):
+                    kij = sld(S["K0"] + i * m + j)
+                    return tuple(s[k] - kij * sld(x + j * nk + k)
+                                 for k in range(nk))
+
+                s = loop(0, m, acc, tuple(sld(S["RB"] + i * nk + k)
+                                         for k in range(nk)))
+                for k in range(nk):
+                    sst(S["R"] + i * nk + k, s[k])
+                return nr + n_rows(s)
+
+            return loop(0, m, row, zero)
+
+        solve(S["RB"], S["X"])
+        for _ in range(refine):
+            residual(S["X"])
+            solve(S["R"], S["DX"])
+
+            def add(r):
+                for k in range(nk):
+                    e = S["X"] + r * nk + k
+                    sst(e, sld(e) + sld(S["DX"] + r * nk + k))
+
+            each(m, add)
+
+        # --- backward-stability gate (ops.ldlt.ldlt_solve_refined with
+        # check_residual: ||r|| <= rtol (||K|| ||x|| + ||b||), Frobenius) ---
+        nR = residual(S["X"])
+
+        # --- gains out; value recursion Vxx = C + beta'B + omega'cx,
+        # Vx = lx + cx'phi + beta'Qu + omega'c + fx'Vx', dL += Qu'alpha +
+        # c'psi, all read off X and rhs = -[Qu B; c cx] ---
+        def v_row(r, carry):
+            V, v, dL, nX, x_fin = carry
+            xr = [sld(S["X"] + r * nk + k) for k in range(nk)]
+            br = [sld(S["RB"] + r * nk + k) for k in range(nk)]
+            for k in range(nk):
+                plgpu.store(x_ref.at[pid, t, at(r * nk + k)], xr[k])
+            V = [[V[i][j] - xr[1 + i] * br[1 + j] for j in range(nx)]
+                 for i in range(nx)]
+            v = [v[i] - xr[1 + i] * br[0] for i in range(nx)]
+            for k in range(nk):
+                x_fin = x_fin & jnp.isfinite(xr[k])
+            return V, v, dL - br[0] * xr[0], nX + n_rows(xr), x_fin
+
+        V, v, dL_t, nX, x_fin = loop(
+            0, m, v_row, (C, [zero] * nx, zero, zero, jnp.ones_like(mu) > 0))
+        Vxx_new = [[0.5 * (V[i][j] + V[j][i]) for j in range(nx)]
+                   for i in range(nx)]
+        Vx_new = []
+        for i in range(nx):
+            s = w("lx", i)
+            for c in range(nc):
+                s = s + w("cx", c, i) * w("phi", c)
+            s = s + v[i]
+            for k in range(nx):
+                s = s + fx[k][i] * Vx[k]
+            Vx_new.append(s)
+        solve_ok = ((jnp.sqrt(nR) <= rtol * (jnp.sqrt(nK) * jnp.sqrt(nX)
+                                             + jnp.sqrt(nB))) & x_fin)
+        ok = finite & (n_zero == 0) & (n_pos == nu) & solve_ok
+        return Vx_new, Vxx_new, dL_t, ok, n_zero > 0
+
+    def body(i, carry):
+        Vx, Vxx, dL, fail, singular = carry
+        Vx, Vxx, dL_t, ok, sing = stage(T - 1 - i, Vx, Vxx)
+        one, nil = jnp.int32(1), jnp.int32(0)
+        first_fail = (fail == 0) & ~ok
+        singular = singular | jnp.where(first_fail & sing, one, nil)
+        fail = fail | jnp.where(ok, nil, one)
+        return Vx, Vxx, dL + dL_t, fail, singular
+
+    izero = jnp.zeros_like(lane)
+    _, _, dL, fail, singular = loop(
+        0, T, body, (Vx0, Vxx0, jnp.zeros((tile_b,), dt), izero, izero))
+    plgpu.store(dl_ref.at[pid, lane], dL)
+    plgpu.store(flag_ref.at[pid, at(0)], fail)
+    plgpu.store(flag_ref.at[pid, at(1)], singular)
 
 
 @partial(jax.jit, static_argnames=("nx", "nu", "nc", "refine", "rtol",
-                                   "tile_b", "interpret"))
+                                   "tile_b", "num_warps", "interpret"))
 def backward_sweep_pallas(
         fx, fu, lx, lu, lxx, lux, luu, cx, cu, sec,
         c_rel, il, iu, phi, zl, zu, lTx, lTxx, mu, reg, delta_c,
-        *, nx, nu, nc, refine, rtol, tile_b=128, interpret=None):
-    """Full-batch backward sweep. All per-stage args are batch-leading
-    [B, T, ...]; per-instance scalars mu/reg/delta_c are [B]. Returns the
-    gains as [B, T, ...] arrays plus (dL [B], fail [B] bool, singular [B]
-    bool) — the exact signature of one `backward._run_pass` attempt, batched.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+        *, nx, nu, nc, refine, rtol, tile_b=None, num_warps=1,
+        interpret=False):
+    """Full-batch backward sweep. Per-stage arguments are batch-leading
+    `[B, T, ...]` (`sec` may be None: quasi-Newton), per-instance scalars
+    mu/reg/delta_c are `[B]`. Returns the gains as `[B, T, ...]` arrays plus
+    (dL [B], fail [B] bool, singular [B] bool): one `backward._run_pass`
+    attempt, batched. `interpret=True` runs the Pallas interpreter (tests
+    on a machine without a GPU).
+
+    `tile_b` instances per program, one warp each: 32 in f32 and 16 in
+    f64 measured fastest for concar at b2048 on an H100 (16-128 lanes
+    with 1-4 warps tried)."""
     B, T = fx.shape[0], fx.shape[1]
     dtype = fx.dtype
-    nz = nx + nu
-    nk = nx + 1
+    if tile_b is None:
+        tile_b = 32 if dtype == jnp.float32 else 16
+    m, nk = nu + nc, nx + 1
+    has_sec = sec is not None
+    layout, n_entries = _layout(nx, nu, nc, has_sec)
+    nb = pl.cdiv(B, tile_b)
+    pad = nb * tile_b - B
 
-    tile_b = min(tile_b, B)
-    pad = (-B) % tile_b
-    if pad:
-        padded = lambda a: jnp.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1),
-                                   mode="edge")
-    else:
-        padded = lambda a: a
-    Bp = B + pad
+    def tiles(a):
+        """[B, ...] -> [nb, ..., tile_b]; padding lanes repeat the last
+        instance, so they compute finite, ignored values."""
+        a = jnp.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1), mode="edge")
+        a = a.reshape((nb, tile_b) + a.shape[1:])
+        return jnp.moveaxis(a, 1, -1)
 
-    # [B, T, ...] -> [T, ..., B] (batch on lanes)
-    tl = lambda a: jnp.moveaxis(padded(a), 0, -1)
+    parts = [fx, fu, lx, lu, lxx, lux, luu]
+    if nc:
+        parts += [cx, cu, c_rel, phi]
+    if has_sec:
+        parts += [sec[:, :, :nx, :nx], sec[:, :, nx:, :nx],
+                  sec[:, :, nx:, nx:]]
+    parts += [il, iu, zl, zu]
+    w = jnp.concatenate([p.reshape(B, T, -1) for p in parts], axis=-1)
+    assert w.shape[-1] == n_entries
+    w = tiles(w).reshape(nb, T, n_entries * tile_b)
+    head = jnp.concatenate([mu[:, None], reg[:, None], delta_c[:, None],
+                            lTx, lTxx.reshape(B, -1)], axis=1)
+    head = tiles(head).reshape(nb, -1)
+    _, n_scratch = _scratch_layout(m, nk)
 
-    scal = jnp.stack([mu, reg, delta_c], axis=0)         # [3, B]
-    scal = padded(scal.T).T if pad else scal
-
-    nb = Bp // tile_b
-    grid = (nb, T)
-
-    # NB: the reversed-time index is computed as i32 (`T - 1` as a weak
-    # Python int promotes the subtraction to i64 under x64, and Mosaic
-    # rejects an index-map function returning i64). np.int32 is strongly
-    # typed and not a tracer (index maps may not capture tracers).
-    import numpy as np
-    Tm1 = np.int32(T - 1)
-
-    zero32 = np.int32(0)
-
-    def t_spec(*dims):
-        block = (1,) + dims + (tile_b,)
-        zeros = (zero32,) * len(dims)
-        return pl.BlockSpec(block, lambda b, i: (Tm1 - i, *zeros, b),
-                            memory_space=pltpu.VMEM)
-
-    def const_spec(*dims):
-        block = dims + (tile_b,)
-        zeros = (zero32,) * len(dims)
-        return pl.BlockSpec(block, lambda b, i: (*zeros, b),
-                            memory_space=pltpu.VMEM)
-
-    in_specs = [
-        const_spec(3),                   # scal
-        const_spec(nx),                  # lTx
-        const_spec(nx, nx),              # lTxx
-        t_spec(nx, nx),                  # fx
-        t_spec(nx, nu),                  # fu
-        t_spec(nx),                      # lx
-        t_spec(nu),                      # lu
-        t_spec(nx, nx),                  # lxx
-        t_spec(nu, nx),                  # lux
-        t_spec(nu, nu),                  # luu
-        t_spec(max(nc, 1), nx),          # cx
-        t_spec(max(nc, 1), nu),          # cu
-        t_spec(nz, nz),                  # sec
-        t_spec(max(nc, 1)),              # c
-        t_spec(nu),                      # il
-        t_spec(nu),                      # iu
-        t_spec(max(nc, 1)),              # phi
-        t_spec(nu),                      # zl
-        t_spec(nu),                      # zu
-    ]
-    out_specs = (
-        t_spec(nu),                      # alpha
-        t_spec(nu, nx),                  # beta
-        t_spec(max(nc, 1)),              # psi
-        t_spec(max(nc, 1), nx),          # omega
-        t_spec(nu),                      # chi_l
-        t_spec(nu, nx),                  # zeta_l
-        t_spec(nu),                      # chi_u
-        t_spec(nu, nx),                  # zeta_u
-        const_spec(1),                   # dL (accumulated in-place)
-        const_spec(2),                   # flags (fail, singular)
-    )
     # outputs vary over whatever mesh axes the inputs do (under shard_map
-    # the whole sweep is per-shard, so vma propagates unchanged); without
-    # this, shard_map's check_vma rejects the pallas_call out_shape
+    # the sweep is per-shard); shard_map's check_vma reads this
     vma = getattr(jax.typeof(fx), "vma", frozenset())
     out_shape = (
-        jax.ShapeDtypeStruct((T, nu, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, nu, nx, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, max(nc, 1), Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, max(nc, 1), nx, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, nu, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, nu, nx, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, nu, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((T, nu, nx, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((1, Bp), dtype, vma=vma),
-        jax.ShapeDtypeStruct((2, Bp), jnp.int32, vma=vma),
+        jax.ShapeDtypeStruct((nb, T, m * nk * tile_b), dtype, vma=vma),
+        jax.ShapeDtypeStruct((nb, tile_b), dtype, vma=vma),
+        jax.ShapeDtypeStruct((nb, 2 * tile_b), jnp.int32, vma=vma),
+        jax.ShapeDtypeStruct((nb, n_scratch * tile_b), dtype, vma=vma),
+        jax.ShapeDtypeStruct((nb, m * tile_b), jnp.int32, vma=vma),
     )
-
-    nc1 = max(nc, 1)
-    zt = lambda *dims: jnp.zeros((B, T) + dims, dtype)
-    args = (
-        scal,
-        jnp.moveaxis(padded(lTx), 0, -1),
-        jnp.moveaxis(padded(lTxx), 0, -1),
-        tl(fx), tl(fu), tl(lx), tl(lu), tl(lxx), tl(lux), tl(luu),
-        tl(cx) if nc > 0 else tl(zt(nc1, nx)),
-        tl(cu) if nc > 0 else tl(zt(nc1, nu)),
-        tl(sec),
-        tl(c_rel) if nc > 0 else tl(zt(nc1)),
-        tl(il), tl(iu),
-        tl(phi) if nc > 0 else tl(zt(nc1)),
-        tl(zl), tl(zu),
-    )
-
-    outs = pl.pallas_call(
-        partial(_kernel, nx=nx, nu=nu, nc=nc, refine=refine, rtol=rtol),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
+    X, dL, flags, _, _ = pl.pallas_call(
+        partial(_kernel, T=T, tile_b=tile_b, nx=nx, nu=nu, nc=nc,
+                has_sec=has_sec, refine=refine, rtol=rtol, layout=layout),
         out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((nx, tile_b), dtype),          # Vx carry
-            pltpu.VMEM((nx, nx, tile_b), dtype),      # Vxx carry
-        ],
-        interpret=bool(interpret),
-        debug=bool(int(__import__("os").environ.get("PALLAS_DEBUG", "0"))),
-    )(*args)
+        grid=(nb,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="backward_sweep",
+    )(head, w)
 
-    (alpha, beta, psi, omega, chi_l, zeta_l, chi_u, zeta_u,
-     dL, flags) = outs
-
-    fb = lambda a: jnp.moveaxis(a, -1, 0)[:B]        # [T,...,Bp] -> [B,T,...]
-    gains = (fb(alpha), fb(beta),
-             fb(psi)[:, :, :nc], fb(omega)[:, :, :nc],
-             fb(chi_l), fb(zeta_l), fb(chi_u), fb(zeta_u))
-    return gains, dL[0, :B], flags[0, :B] > 0, flags[1, :B] > 0
+    untile = lambda a: jnp.moveaxis(a, -1, 1).reshape(
+        (nb * tile_b,) + a.shape[1:-1])[:B]
+    X = untile(X.reshape(nb, T, m * nk, tile_b)).reshape(B, T, m, nk)
+    alpha, beta = X[:, :, :nu, 0], X[:, :, :nu, 1:]
+    psi, omega = X[:, :, nu:, 0], X[:, :, nu:, 1:]
+    sl, su = 1.0 / il, 1.0 / iu
+    sig_l, sig_u = zl * sl, zu * su
+    mu_t = mu[:, None, None]
+    gains = (alpha, beta, psi, omega,
+             mu_t * sl - zl - sig_l * alpha, -sig_l[..., None] * beta,
+             mu_t * su - zu + sig_u * alpha, sig_u[..., None] * beta)
+    flags = untile(flags.reshape(nb, 2, tile_b))
+    return gains, untile(dL), flags[:, 0] > 0, flags[:, 1] > 0

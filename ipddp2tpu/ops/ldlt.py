@@ -1,6 +1,6 @@
 """Symmetric-indefinite LDL^T factorization with inertia extraction.
 
-TPU-native replacement for the reference's LAPACK Bunch-Kaufman rook path
+Batch-friendly replacement for the reference's LAPACK Bunch-Kaufman rook path
 (reference: src/inertia_correction.jl:257-276, which calls
 `LAPACK.sytrf_rook!` and counts eigenvalue signs of the block-diagonal D in
 `inertia!` src/inertia_correction.jl:54-205).
@@ -26,9 +26,8 @@ LDL^T:
 
 The factorization loops over m columns with full-width masked rank-1 updates:
 under `vmap` over (batch [, time]) every arithmetic op is a large elementwise
-VPU op over the batch lanes, which is how this maps to the hardware. A fused
-The fused Pallas megakernels (`backward_pallas*.py`) inline this
-factorization logic batch-on-lanes for the TPU fast paths.
+op over the batch lanes. The backward-sweep kernel (`backward_pallas.py`)
+inlines the same factorization one lane per instance.
 """
 
 from __future__ import annotations

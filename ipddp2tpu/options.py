@@ -25,8 +25,7 @@ The options marked "unused" below are unused in the reference implementation as
 well (src/options.jl, see SURVEY.md §2.1); they are carried for API parity.
 
 The dataclass is frozen and hashable so it can be passed to `jax.jit` as a
-static argument — changing any option triggers a (cached) recompile, matching
-the "frozen config" TPU design stance.
+static argument — changing any option triggers a (cached) recompile.
 """
 
 from __future__ import annotations
@@ -73,7 +72,7 @@ class Options:
 
     kappa_Sigma: float = 1e10           # unused (parity): dual rescaling threshold
 
-    # --- TPU-build extensions (not in the reference) ---
+    # --- extensions (not in the reference) ---
     filter_capacity: int = 64           # fixed-capacity ring buffer replaces the
                                         # reference's unbounded push! list
     inertia_atol: float = 1e-12         # |eig| tolerance for zero-eigenvalue count
@@ -86,16 +85,14 @@ class Options:
                                         # the reference) or "parallel"
                                         # (associative-scan Riccati: O(log T)
                                         # depth, same semantics)
-    backward_kernel: str = "auto"       # batched backward-sweep dispatch:
-                                        # "auto"   = fused Pallas megakernel
-                                        #            when vmapped on TPU (f32
-                                        #            kernel for f32, df64
-                                        #            double-single kernel for
-                                        #            f64)
-                                        # "pallas" = always the f32 megakernel
-                                        #            (interpret mode off-TPU)
-                                        # "pallas_df64" = always the df64
-                                        #            endgame megakernel
+    backward_kernel: str = "auto"       # batched backward-sweep dispatch
+                                        # (backward.use_sweep_kernel):
+                                        # "auto"   = the fused Pallas kernel
+                                        #            when vmapped on a GPU
+                                        #            (LDL^T inertia only)
+                                        # "pallas" = always the kernel (GPU
+                                        #            only: Pallas refuses
+                                        #            to lower it elsewhere)
                                         # "xla"    = always the vmapped scan
     ldlt_unroll: bool = True            # unroll the factorization column loop
                                         # (faster dispatch; False shrinks the
@@ -134,7 +131,7 @@ class Options:
     ls_speculative: int = 0             # 0 = reference backtracking while_loop;
                                         # K > 0 = evaluate gammas 2^-0..2^-(K-1)
                                         # in one batched rollout and pick the
-                                        # largest acceptable (TPU fast path)
+                                        # largest acceptable
     ls_spec_continue: bool = False      # hybrid line search: after the
                                         # ls_speculative candidates, CONTINUE
                                         # sequential backtracking from
@@ -145,22 +142,3 @@ class Options:
                                         # in the common case; the lockstep
                                         # tail loop only runs for instances
                                         # backtracking below 2^-K
-    forward_kernel: str = "auto"        # speculative-LS forward-pass dispatch
-                                        # when vmapped (needs ls_speculative
-                                        # > 0):
-                                        # "auto"   = fused Pallas rollout/
-                                        #            metrics kernels on TPU
-                                        #            (df64 for f64 when the
-                                        #            model traces through
-                                        #            the dd interpreter)
-                                        # "pallas" = always (interpret mode
-                                        #            off-TPU; the test path)
-                                        # "pallas_df64" = force the df64
-                                        #            kernels
-                                        # "xla"    = never
-    auto_tune: bool = True              # batched TPU entry points auto-select
-                                        # backward_mode / ls_speculative from
-                                        # the measured crossover table
-                                        # (autotune.TUNE_TABLE) for knobs the
-                                        # caller left at their defaults; CPU
-                                        # and explicit settings are untouched

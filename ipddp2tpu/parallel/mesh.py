@@ -5,8 +5,9 @@ is new design. Instances are embarrassingly parallel, so the sharding story
 is: lay the batch out over the mesh's data-parallel axis with `shard_map`,
 let each device run its shard's lockstep solves, and use collectives only for
 convergence bookkeeping — `psum`/`pmax` of (num converged, max errors) ride
-the ICI; no other cross-device traffic exists. This replaces the
-NCCL/MPI-style backend a torch port would have reached for.
+the interconnect (NVLink between GPUs); no other cross-device traffic
+exists. This replaces the NCCL/MPI-style backend a torch port would have
+reached for.
 
 Axis conventions:
   * "dp" — instance/data parallel (the only partitioned axis; trajectories of
@@ -84,17 +85,8 @@ def solve_sharded(problem: Problem, bounds: Bounds, x1: Array, u_init: Array,
     out_specs = (jax.tree.map(lambda _: spec, Solution(*[0] * len(Solution._fields))),
                  jax.tree.map(lambda _: P(), BatchStats(*[0] * len(BatchStats._fields))))
 
-    # check_vma stays on (the collectives above are exactly what it
-    # verifies) with one exception: a Pallas megakernel forced off-TPU runs
-    # in interpret mode, whose block indexing lowers to dynamic_slice with
-    # replicated grid indices on varying operands — JAX's vma typing rejects
-    # that even though it is semantically per-shard. The real-TPU Mosaic
-    # path does not lower through those primitives and type-checks fine
-    # (the kernels propagate input vma into their out_shapes).
-    interp_pallas = (options.backward_kernel in ("pallas", "pallas_df64")
-                     or options.forward_kernel in ("pallas", "pallas_df64")
-                     ) and jax.default_backend() != "tpu"
+    # check_vma verifies the collectives above; the backward-sweep kernel
+    # carries its inputs' vma into its out_shape.
     fn = jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
-                               out_specs=out_specs,
-                               check_vma=not interp_pallas))
+                               out_specs=out_specs, check_vma=True))
     return fn(bounds, x1, u_init, theta)

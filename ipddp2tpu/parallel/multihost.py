@@ -38,7 +38,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Wire this process into the multi-host runtime (no-op if standalone).
 
     With no arguments, reads the standard JAX env/cluster autodetection
-    (JAX_COORDINATOR_ADDRESS, TPU metadata, SLURM, ...)."""
+    (JAX_COORDINATOR_ADDRESS, cloud metadata, SLURM, ...)."""
     if num_processes is not None and num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator_address,

@@ -162,8 +162,7 @@ def solve_timesharded(problem: Problem, bounds, x1, u_init, theta=None,
         import numpy as np
         mesh = Mesh(np.asarray(jax.devices()), (axis,))
     options = options or Options()
-    options = dataclasses.replace(options, backward_mode="timeshard",
-                                  auto_tune=False)
+    options = dataclasses.replace(options, backward_mode="timeshard")
     with use_time_mesh(mesh, axis):
         return solve(problem, bounds, x1, u_init, theta=theta,
                      options=options)

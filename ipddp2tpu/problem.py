@@ -16,7 +16,7 @@ stages with uniform (nx, nu, nc) plus an explicit terminal cost on x_T, which
 removes the ragged terminal stage entirely — every per-stage array is a dense
 `[T, ...]` block, the layout XLA tiles best.
 
-Design stance (TPU-first, see SURVEY.md §7):
+Design stance (batch-first, see SURVEY.md §7):
   * `Problem` is a frozen, hashable dataclass of *functions and dims* — it is a
     static jit argument, so the whole solve specializes and compiles once per
     problem structure.
@@ -102,7 +102,7 @@ class Bounds(NamedTuple):
     """Runtime control bounds, `[T, nu]` each, +-inf marks an absent bound.
 
     The reference keeps per-stage index lists of finite bounds
-    (reference: src/bounds.jl:1-26); on TPU the equivalent is static-shape
+    (reference: src/bounds.jl:1-26); the static-shape equivalent here is
     isfinite masks used in `where`-selects.
     """
 

@@ -19,6 +19,7 @@ in the dual-error scaling denominator (reference: src/solve.jl:130,145).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import jax
@@ -95,6 +96,23 @@ class Solution(NamedTuple):
     mu: Array
 
 
+def full_precision(fn):
+    """Trace `fn` with every matrix product at HIGHEST precision.
+
+    On a GPU an f32 `dot_general` at default precision may run in TF32,
+    which keeps about three decimal digits, far short of the f32 phase's
+    3e-4 KKT target. Every traced entry of the solver (`initialize`, `run`,
+    `iteration`, `mixed.promote_state`) carries this, so any caller of
+    `solve`, `solve_batch`, the chunked and mixed drivers or the sharded
+    solve gets full f32 products, including those in the user's model
+    functions. f64 products and CPU results are unchanged."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
 def _nominal_trial(s: SolverState) -> Trial:
     return Trial(x=s.x, u=s.u, c_raw=s.c_raw, il=s.il, iu=s.iu,
                  phi=s.phi, zl=s.zl, zu=s.zu)
@@ -148,6 +166,7 @@ def resolve_options(options: Options, problem: Problem) -> Options:
         options, inertia_method="bk" if is_contact else "ldl")
 
 
+@full_precision
 def initialize(problem: Problem, theta, bounds: Bounds, x1, u_init,
                options: Options) -> SolverState:
     """Interior projection of the control guess, nominal rollout, dual init
@@ -277,6 +296,7 @@ def solve(problem: Problem, bounds: Bounds, x1, u_init,
     return (sol, state) if return_state else sol
 
 
+@full_precision
 def iteration(problem: Problem, bounds: Bounds, s: SolverState, theta,
               options: Options) -> SolverState:
     """One outer iteration: derivatives -> backward -> errors -> {converged |
@@ -288,6 +308,7 @@ def iteration(problem: Problem, bounds: Bounds, s: SolverState, theta,
     return _body(problem, bounds, theta, options, tol, num_bounds, s)
 
 
+@full_precision
 def run(problem: Problem, bounds: Bounds, state: SolverState, theta,
         options: Options, k_limit=None) -> SolverState:
     """The main iteration loop on an initialized state.
@@ -328,12 +349,9 @@ def _body(problem: Problem, bounds: Bounds, theta, options: Options,
     nominal = (c_rel, s.il, s.iu, s.phi, s.zl, s.zu)
     # costate first (affine associative scan), then pre-contract the dynamics
     # Hessians vectorized over T — the backward sweep never materializes the
-    # full [T, nx, nz, nz] tensor. (A fused Pallas prologue sweep was built
-    # and measured round 5: 41.1 vs XLA's 3.0 ms/batch-iteration at b1024
-    # f32 — the derivative/contraction stages are per-stage PARALLEL work
-    # XLA already fuses across T x B, and a kernel serializes them behind
-    # the T-sequential costate grid. Megakernels only pay off for the
-    # inherently sequential sweeps; see docs/PERF.md round-5 levers.)
+    # full [T, nx, nz, nz] tensor. These stages are per-stage parallel work
+    # XLA fuses across T x B; only the T-sequential backward sweep has a
+    # kernel.
     lam = costate_scan(deriv, s.phi)
     if options.quasi_newton:
         second = None

@@ -1,7 +1,7 @@
 """Console reporting (the reference's L5 layer, src/print.jl:1-46).
 
 Inside jit, per-iteration rows are emitted through `jax.debug.callback` —
-the TPU-native analog of the reference's Printf-based table — rate-limited by
+the JAX analog of the reference's Printf-based table — rate-limited by
 `print_frequency` like the reference (reference: src/options.jl:7,
 src/print.jl:13-29). The wall/iter timing columns (reference:
 src/print.jl:13-29 prints wall and solver ms) are stamped host-side when the
@@ -18,7 +18,7 @@ import jax
 from ..problem import STATUS_MESSAGES
 
 _BANNER = r"""
- ipddp2tpu — interior-point DDP (IPDDP2, arXiv:2504.08278), TPU-native
+ ipddp2tpu — interior-point DDP (IPDDP2, arXiv:2504.08278) in JAX
  stagewise equality constraints + control bounds | barrier + filter line search
 """
 

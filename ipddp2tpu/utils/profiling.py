@@ -1,7 +1,7 @@
 """Profiling hooks (SURVEY.md §5 tracing/profiling plan).
 
 The reference hand-rolls wall/solver/fn-eval timers (reference:
-src/solve.jl:19,41-43,86-87); the TPU-native equivalents are `jax.profiler`
+src/solve.jl:19,41-43,86-87); the JAX equivalents are `jax.profiler`
 traces viewable in XProf/TensorBoard plus host-side block timers.
 """
 

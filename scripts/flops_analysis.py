@@ -1,10 +1,10 @@
 """FLOPs-per-iteration accounting for the speed-of-light (MFU) analysis.
 
-Compiles one solver iteration (XLA paths, which execute the same math as
-the Pallas kernels) for batched concar and reads XLA's own HLO cost
-analysis — the algorithmic FLOP count that docs/PERF.md's MFU section
-divides by measured on-chip walls. Runs on CPU; the count is
-backend-independent (HLO-level).
+Compiles one solver iteration (the XLA paths, which execute the same math
+as the backward-sweep kernel) for batched concar and reads XLA's own HLO
+cost analysis — the algorithmic FLOP count a utilization figure divides
+by a measured device time. Runs on CPU; the count is backend-independent
+(HLO-level).
 
 Usage: python scripts/flops_analysis.py [batch ...]
 """
@@ -45,7 +45,6 @@ for batch in BATCHES:
     for dt_name, dtype, spec in (("f32", jnp.float32, 0),
                                  ("f64", jnp.float64, 8)):
         opts = Options(optimality_tolerance=1e-7, backward_kernel="xla",
-                       forward_kernel="xla", auto_tune=False,
                        ls_speculative=spec, ldlt_unroll=False)
         keys = jax.random.split(jax.random.PRNGKey(0), batch)
         thetas, f_lims, tau_lims, x1s = jax.vmap(

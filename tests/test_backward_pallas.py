@@ -1,10 +1,12 @@
-"""Parity of the fused Pallas backward megakernel vs the lax.scan sweep.
+"""Parity of the backward-sweep kernel vs the lax.scan sweep, through the
+solver's own dispatch.
 
-The megakernel (`ops/backward_pallas.py`) must reproduce the scan backward
-pass (`backward._run_pass`, reference: src/backward_pass.jl:58-189) —
-gains, expected decrease, restart bookkeeping — on randomized inputs,
-including randomized duals/trajectories (scan-order bugs can hide at
-uniform initial states; see CLAUDE.md numerical lessons).
+The kernel (`ops/backward_pallas.py`) must reproduce the scan backward pass
+(`backward._run_pass`, reference: src/backward_pass.jl:58-189) — gains,
+expected decrease, restart bookkeeping — on randomized inputs, including
+randomized duals/trajectories (scan-order bugs can hide at uniform initial
+states). Off the GPU the kernel runs in the Pallas interpreter, which these
+tests ask for explicitly (the `interpret_kernel` fixture).
 """
 
 import jax
@@ -74,7 +76,7 @@ def run_backward(problem, inputs, mu, options):
 
 @pytest.mark.parametrize("nc", [2, 0])
 @pytest.mark.kernels
-def test_megakernel_matches_scan(nc):
+def test_megakernel_matches_scan(nc, interpret_kernel):
     problem = tiny_problem(nc=nc)
     inputs = random_inputs(problem, jax.random.PRNGKey(0), 4, jnp.float64)
     ref = run_backward(problem, inputs, 0.1, Options(backward_kernel="xla"))
@@ -90,7 +92,7 @@ def test_megakernel_matches_scan(nc):
     np.testing.assert_allclose(np.asarray(out.reg), np.asarray(ref.reg))
 
 
-def test_megakernel_restart_ladder_parity():
+def test_megakernel_restart_ladder_parity(interpret_kernel):
     """Indefinite stage Hessians force inertia failures; the reg ladder must
     land on the same regularization and gains as the scan path."""
     problem = tiny_problem(nc=2)
@@ -115,7 +117,7 @@ def test_megakernel_restart_ladder_parity():
 
 
 @pytest.mark.kernels
-def test_megakernel_in_solver():
+def test_megakernel_in_solver(interpret_kernel):
     """Full batched solve with the megakernel matches the scan solver."""
     from ipddp2tpu.batch import solve_batch
     from ipddp2tpu.models import double_integrator as di
@@ -140,3 +142,23 @@ def test_megakernel_in_solver():
                                   np.asarray(ref.iterations))
     np.testing.assert_allclose(np.asarray(out.objective),
                                np.asarray(ref.objective), rtol=1e-9)
+
+
+def test_auto_dispatch_takes_scan_off_gpu():
+    from ipddp2tpu.backward import use_sweep_kernel
+
+    assert jax.default_backend() != "gpu"
+    assert not use_sweep_kernel(Options())
+    assert not use_sweep_kernel(Options(backward_kernel="xla"))
+    assert use_sweep_kernel(Options(backward_kernel="pallas"))
+
+
+def test_forced_kernel_raises_off_gpu():
+    """"pallas" never falls back to the interpreter silently: off the GPU
+    Pallas refuses to lower the kernel unless `interpret=True` was passed."""
+    problem = tiny_problem(nc=2)
+    inputs = random_inputs(problem, jax.random.PRNGKey(0), 2, jnp.float64)
+    with pytest.raises(ValueError, match="interpret mode"):
+        run_backward(problem, inputs, 0.1, Options(backward_kernel="pallas"))
+    with pytest.raises(ValueError, match="unknown backward_kernel"):
+        run_backward(problem, inputs, 0.1, Options(backward_kernel="mosaic"))

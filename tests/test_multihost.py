@@ -1,4 +1,4 @@
-"""Multi-host validation without a cluster (VERDICT round-1 item 4): two CPU
+"""Multi-host validation without a cluster: two CPU
 processes x 4 virtual devices = an 8-device global mesh, host-sharded
 instance generation, numerical parity against a single-process solve of the
 same instances (BASELINE.md north star: multi-host scaling path exists and

@@ -104,7 +104,7 @@ def test_solve_timesharded_long_horizon():
     sh = solve_timesharded(problem, bounds, x1, u0, options=opts, mesh=mesh)
     ref = solve(problem, bounds, x1, u0,
                 options=Options(optimality_tolerance=1e-7, max_iterations=8,
-                                backward_mode="parallel", auto_tune=False))
+                                backward_mode="parallel"))
     np.testing.assert_allclose(np.asarray(sh.u), np.asarray(ref.u),
                                rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(np.asarray(sh.x), np.asarray(ref.x),
@@ -112,6 +112,6 @@ def test_solve_timesharded_long_horizon():
     # and against the sequential reference backward (same math, scan order)
     seq = solve(problem, bounds, x1, u0,
                 options=Options(optimality_tolerance=1e-7, max_iterations=8,
-                                backward_mode="scan", auto_tune=False))
+                                backward_mode="scan"))
     np.testing.assert_allclose(np.asarray(sh.u), np.asarray(seq.u),
                                rtol=1e-6, atol=1e-8)
